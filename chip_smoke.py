@@ -6,23 +6,42 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with
-``nvcc``, holds each kernel against its plain PyTorch version on the
-card, then drives ``EEJoinOperator.prepare`` + ``execute(use_kernel=True)``
-at full size:
+``nvcc`` (one process per source, all at once), holds each kernel
+against its plain PyTorch version on the card, then drives the
+operator's entry points at full size:
 
-* phase A: 50,000 entities (``make_corpus``, seed 0), 1,024 documents of
-  512 tokens, the pure ``index:variant`` plan;
+* phase A: ``EEJoinOperator.prepare`` + ``execute(use_kernel=True)``,
+  50,000 entities (``make_corpus``, seed 0), 1,024 documents of 512
+  tokens, the pure ``index:variant`` plan (kernels fused_probe and
+  jaccard_verify);
+* phase C: the same corpus, plan and capacity through the streaming
+  entry points: ``execute_corpus`` over the documents written as a
+  ``MemmapCorpus`` under a 1 MiB device budget (4 shards of 256
+  documents, each one streamed probe of 4 chunks of 64), once straight
+  through and once killed after 2 shards and resumed from its lane
+  checkpoints, and ``execute_sharded`` with adaptive lanes (kernels
+  fused_probe_stream and jaccard_verify). Every match, score included,
+  must equal phase A's;
 * phase B: the first 256 documents, a hybrid plan with an ``ssjoin:lsh``
   head over entities [0, 5000) and an ``index:variant`` tail, with
   adaptive lanes. The head bands its MinHash as 2 bands x 4 rows: with
   the default 4 x 2 the head's common tokens put 268 entities in one
   signature bucket, so each window would verify K = 1,072 candidates and
-  the [N, K, K] duplicate mask over N = 1 M windows would need ~1 TB.
+  the [N, K, K] duplicate mask over N = 1 M windows would need ~1 TB;
+* phase D: entities of 2 to 40 tokens (10,000 of them, seed 1), so
+  windows are longer than the fused probe's 32-length bitmap holds:
+  ``execute`` and ``execute_sharded`` through the window_filter kernel,
+  on 32 documents of 512 tokens with an ``ssjoin:lsh`` plan banded
+  2 x 8 (see ``D_D`` below for why);
+* minhash: the ``ops.minhash`` entry point on the 1,048,576 (document,
+  position, length) windows of phase B's documents, at 4 x 2 and 2 x 4
+  bands, equal to the plain form and to ``window_signatures("lsh")``.
 
-Each phase's matches must equal those of ``execute(use_kernel=False)`` on
-the card, every planted mention whose window is exactly its entity must
-be found, no candidate may overflow, and every kernel must have been
-launched by the phase. The last two lines of standard output are a JSON
+Phases A, B and D must give the matches of ``execute(use_kernel=False)``
+on the card; in A and B every planted mention whose window is exactly its
+entity must be found; no candidate may overflow; every kernel must have
+been launched by its phase (the counts are set to 0 just before a phase
+and read just after). The last two lines of standard output are a JSON
 line of per-kernel numbers and ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, without a GPU or outside a checkout.
 """
@@ -49,6 +68,21 @@ RESULT_CAPACITY = 1 << 19  # phase A finds ~268,000 matches, more than 2^18
 D_B = 256
 SPLIT_B = 5_000
 LSH_B = (2, 4)  # bands, rows of the ssjoin:lsh head (see the module docstring)
+
+# phase C: execute_corpus under this device budget -> 4 shards of 256 docs
+BUDGET_C = 1 << 20
+SHARD_C, TILE_C = 256, 64
+# phase D: long entities. The plain comparator (execute(use_kernel=False))
+# builds three [N, K, L, L] bool tensors in its similarity: at L = 40,
+# K = 10 (2 x 8 bands) and N = D*T*L that is 31 GB at D = 32, so D is cut
+# from 256 to 32. Variant plans are out: their enumeration grows
+# combinatorially with entity length.
+NUM_ENTITIES_D = 10_000
+MAX_ENTITY_LEN_D = 40
+D_D = 32
+LSH_D = (2, 8)
+# minhash: the windows of phase B's documents
+MINHASH_BANDS = ((4, 2), (2, 4))
 
 DEVICE = "cuda"
 
@@ -97,6 +131,33 @@ def max_abs_diff(a, b) -> float:
     if a.numel() == 0:
         return 0.0
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def counters():
+    """Each kernel's launch counter: name -> (module, attribute)."""
+    from repro_torch.kernels import fused_probe, jaccard_verify, minhash, window_filter
+
+    return {"fused_probe": (fused_probe, "launches"),
+            "fused_probe_stream": (fused_probe, "stream_launches"),
+            "jaccard_verify": (jaccard_verify, "launches"),
+            "window_filter": (window_filter, "launches"),
+            "minhash": (minhash, "launches")}
+
+
+def reset_counts() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(names) -> dict:
+    c = counters()
+    return {n: getattr(*c[n]) for n in names}
+
+
+def require_launched(counts: dict, tag: str) -> None:
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"{tag}: the {name} kernel was not launched")
 
 
 class KernelReport:
@@ -233,17 +294,13 @@ def time_kernels(report, docs, flt, NC, L, verify_inputs):
     # lanes [G, C] i32, variant keys [G, C, 2] u32. (The port carries
     # packed and keys in int64, twice their bytes: a gap of its own.)
     nbytes = Dd * Tt * 4 + bits.numel() * 4 + Dd * Tt * 4 + G * 4 + G * NC * 4 + G * NC * 8
-    # int32 operations: per token 3 Bloom hashes + 2 variant hashes (~10
-    # ops each) and 3 probes; per (token, length) the recurrence (~24 ops)
-    ops = Dd * Tt * (5 * 10 + 3 * 4) + Dd * Tt * L * 24
-    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    ops = probe_ops(Dd * Tt, L)
+    b = bound(report, "fused_probe", nbytes, ops)
     report.set("fused_probe", route="cuda", source="src/repro_torch/kernels/csrc/fused_probe.cu",
                replaces="src/repro/kernels/fused_probe.py:561", ms=ms, plain_ms=plain,
-               bound_ms=max(b_bytes, b_ops), bound_by="bytes" if b_bytes >= b_ops else "operations",
                library_ms=None)
     log(f"[time] fused_probe variant lanes D={Dd} T={Tt} L={L} NC={NC} G={G} bd={bd}: "
-        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {max(b_bytes, b_ops):.4f} ms "
-        f"({nbytes} B, {ops} ops)")
+        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b:.4f} ms ({nbytes} B, {ops} ops)")
 
     N, K, Lv = verify_inputs[2].shape
     ms = cuda_time_ms(lambda: jv.jaccard_verify_cuda(*verify_inputs, mode="extra"), 20)
@@ -253,31 +310,29 @@ def time_kernels(report, docs, flt, NC, L, verify_inputs):
     # entity position and 2 for the quotient. The two kinds of unit run
     # side by side, so the slower one bounds.
     int_ops, f32_ops = N * K * Lv * Lv, N * K * (3 * Lv + 2)
-    ops = int_ops + f32_ops
-    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    b_ops = max(int_ops / INT32_OPS_PER_S, f32_ops / FP32_OPS_PER_S) * 1e3
+    b = bound(report, "jaccard_verify", nbytes, int_ops, f32_ops)
     report.set("jaccard_verify", route="cuda",
                source="src/repro_torch/kernels/csrc/jaccard_verify.cu",
                replaces="src/repro/kernels/jaccard_verify.py:83", ms=ms, plain_ms=plain,
-               bound_ms=max(b_bytes, b_ops), bound_by="bytes" if b_bytes >= b_ops else "operations",
                library_ms=None)
     log(f"[time] jaccard_verify N={N} K={K} L={Lv}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-        f"bound {max(b_bytes, b_ops):.4f} ms ({nbytes} B, {ops} ops); "
+        f"bound {b:.4f} ms ({nbytes} B, {int_ops + f32_ops} ops); "
         "no single PyTorch call computes either kernel's function (library_ms null)")
 
 
-OWN_KERNELS = ("probe_kernel", "scan_kernel", "pad_kernel", "emit_kernel", "jaccard_kernel")
+OWN_KERNELS = ("probe_kernel", "scan_kernel", "pad_kernel", "emit_kernel", "jaccard_kernel",
+               "window_filter_kernel", "minhash_kernel")
 
 
-def profile_execute(tag, op, prepared, docs):
-    """Device time by kernel over one ``execute`` (torch.profiler, CUPTI)."""
+def profile_call(tag, what, fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler, CUPTI)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        op.execute(prepared, docs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, list] = {}
@@ -292,7 +347,7 @@ def profile_execute(tag, op, prepared, docs):
         log(f"[{tag}] profile: device time not measured (the profiler recorded no CUDA events)")
         return
     own = sum(v[0] for k, v in by_name.items() if any(o in k for o in OWN_KERNELS))
-    log(f"[{tag}] profile of one execute: wall {wall_ms:.3f} ms, device busy {total:.3f} ms "
+    log(f"[{tag}] profile of one {what}: wall {wall_ms:.3f} ms, device busy {total:.3f} ms "
         f"({100 * total / wall_ms:.1f}%, idle {100 * (1 - total / wall_ms):.1f}%), "
         f"CUDA kernels of repro_torch {own:.3f} ms ({100 * own / total:.1f}% of device time), "
         f"{sum(v[1] for v in by_name.values())} device ops")
@@ -376,17 +431,14 @@ def run_phase(tag, op, op_plain, prepared, docs, corpus, docs_np, entity_gamma, 
     from repro_torch.kernels.fused_probe import compact_tile_height
 
     L = prepared.max_entity_len
-    for k in kernels:
-        k.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     m = op.execute(prepared, docs)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"{tag}: the {name} kernel was not launched by execute")
+    launches = read_counts(kernels)
+    require_launched(launches, f"{tag} execute")
     log(f"[{tag}] execute(use_kernel=True) first call {first_s:.3f} s, launches {launches}, "
         f"{int(m.count)} matches")
 
@@ -400,7 +452,7 @@ def run_phase(tag, op, op_plain, prepared, docs, corpus, docs_np, entity_gamma, 
     log(f"[{tag}] execute median {statistics.median(times):.3f} ms over 5 runs "
         f"(runs: {', '.join(f'{t:.3f}' for t in times)})")
 
-    profile_execute(tag, op, prepared, docs)
+    profile_call(tag, "execute", lambda: op.execute(prepared, docs))
 
     for i, side in enumerate(prepared.sides):
         c = engine.fused_filter_compact(docs, L, side.flt, side.params)
@@ -422,6 +474,327 @@ def run_phase(tag, op, op_plain, prepared, docs, corpus, docs_np, entity_gamma, 
     compare_matches(m, m_plain, entity_gamma, tag)
     check_planted(m, corpus, docs_np, L, entity_range, tag)
     return m, launches, times
+
+
+def probe_ops(positions: int, L: int) -> int:
+    """int32 operations of the probe recurrence: per token 3 Bloom hashes
+    + 2 variant hashes (~10 ops each) and 3 probes; per (token, length)
+    the recurrence (~24 ops)."""
+    return positions * (5 * 10 + 3 * 4) + positions * L * 24
+
+
+def bound(report, name, nbytes, int_ops, f32_ops=0):
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over their type's peak rate."""
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = max(int_ops / INT32_OPS_PER_S, f32_ops / FP32_OPS_PER_S) * 1e3
+    report.set(name, bound_ms=max(b_bytes, b_ops),
+               bound_by="bytes" if b_bytes >= b_ops else "operations")
+    return max(b_bytes, b_ops)
+
+
+def compare_exact(got, want_scores, tag, ref="phase A's"):
+    """The same matches with bit-identical scores."""
+    gs = match_scores(got)
+    if gs != want_scores:
+        differ = set(gs) ^ set(want_scores)
+        worst = max((abs(gs[k] - want_scores[k]) for k in set(gs) & set(want_scores)),
+                    default=0.0)
+        fail(f"{tag}: {len(differ)} matches differ from {ref} (e.g. {sorted(differ)[:3]}), "
+             f"worst shared score difference {worst}")
+    log(f"[check] {tag}: {len(gs)} matches equal to {ref}, scores bit-identical")
+
+
+def phase_c(report, op, prepared, docs, corpus_docs, want_scores, NC, L):
+    """execute_corpus (straight, then killed and resumed) and
+    execute_sharded with adaptive lanes, through the streamed probe."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.eejoin import EEJoinOperator
+    from repro_torch.extraction import engine, sharded
+    from repro_torch.kernels import fused_probe as fp
+
+    # B3 against its plain form at one shard's shapes (shard 1: row base 256)
+    flt = prepared.sides[0].flt
+    bits, num_bits, num_hashes = flt
+    bd = fp.compact_tile_height(TILE_C, docs.shape[1], NC)
+    sdocs, offs = sharded._streamed_layout(docs[SHARD_C:2 * SHARD_C].contiguous(), TILE_C,
+                                           SHARD_C // TILE_C, bd)
+    row_offs = torch.as_tensor(offs + SHARD_C, device=docs.device)
+    for mode, count_only in (("variant", False), ("none", True), ("none", False)):
+        kw = dict(max_len=L, sig_mode=mode, bd=bd, candidates=NC, count_only=count_only)
+        got = fp.fused_probe_stream_cuda(sdocs, bits, row_offs, num_bits, num_hashes, **kw)
+        want = fp.fused_probe_stream_plain(sdocs, bits, row_offs, num_bits, num_hashes, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("counts", "cands", "vkeys"), got, want):
+            err = max_abs_diff(g, w)
+            if err != 0.0:
+                fail(f"fused_probe_stream mode={mode} count_only={count_only}: {name} differs "
+                     f"from the plain version ({err})")
+            report.worst_err("fused_probe_stream", err)
+        del got, want
+    log(f"[check] fused_probe_stream: shard of {SHARD_C} docs, G={len(offs)} chunks of bd={bd}, "
+        "variant lanes, count-only and plain lanes bit-identical to the plain version")
+
+    kw = dict(max_len=L, sig_mode="variant", bd=bd, candidates=NC)
+    ms = cuda_time_ms(lambda: fp.fused_probe_stream_cuda(sdocs, bits, row_offs, num_bits,
+                                                         num_hashes, **kw), 20)
+    plain = cuda_time_ms(lambda: fp.fused_probe_stream_plain(sdocs, bits, row_offs, num_bits,
+                                                             num_hashes, **kw), 3)
+    R, Tt = sdocs.shape
+    G = len(offs)
+    # docs, Bloom words and row offsets read once; counts [G] i32, lanes
+    # [G, C] i32 and variant keys [G, C, 2] u32 written once
+    nbytes = R * Tt * 4 + bits.numel() * 4 + G * 4 + G * 4 + G * NC * 4 + G * NC * 8
+    b = bound(report, "fused_probe_stream", nbytes, probe_ops(R * Tt, L))
+    report.set("fused_probe_stream", route="cuda",
+               source="src/repro_torch/kernels/csrc/fused_probe_stream.cu",
+               replaces="src/repro/kernels/fused_probe.py:777", ms=ms, plain_ms=plain,
+               library_ms=None)
+    log(f"[time] fused_probe_stream variant lanes R={R} T={Tt} L={L} G={G} bd={bd} W={NC}: "
+        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b:.4f} ms ({nbytes} B)")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_c_")
+    try:
+        mc = sharded.MemmapCorpus.write(f"{tmp}/corpus", corpus_docs)
+        op_c = EEJoinOperator(op.dictionary, dataclasses.replace(op.config,
+                                                                 device_budget_bytes=BUDGET_C),
+                              device=docs.device)
+        names = ("fused_probe_stream", "jaccard_verify")
+
+        reset_counts()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        m = op_c.execute_corpus(prepared, mc, stream_stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        straight = read_counts(names)
+        require_launched(straight, "C execute_corpus")
+        log(f"[C] execute_corpus (budget {BUDGET_C} B) {wall:.3f} s, launches {straight}, "
+            f"stats {stats}")
+        compare_exact(m, want_scores, "C execute_corpus")
+        if stats.get("streamed_launches") != 4 or stats.get("tiles_streamed") != 16:
+            fail(f"C execute_corpus: expected 4 streamed launches of 4 chunks, got {stats}")
+        del m
+        profile_call("C", "execute_corpus", lambda: op_c.execute_corpus(prepared, mc))
+        # host clock split of one execute_corpus: the streamed front end
+        # (staging, B3, lane merge, host window gather) and, inside it, the
+        # window gather alone (timed over all NC window slots, sequential rows)
+        side = prepared.sides[0]
+        t0 = time.perf_counter()
+        sharded.spill_filter_compact(mc, L, side.flt, side.params, device_budget_bytes=BUDGET_C,
+                                     device=docs.device)
+        torch.cuda.synchronize()
+        t_front = time.perf_counter() - t0
+        flat = torch.arange(NC, dtype=torch.int32, device=docs.device)
+        t0 = time.perf_counter()
+        engine.candidates_from_flat_host(mc.tokens, flat, flat >= 0, torch.tensor(NC), L, NC,
+                                         docs.device)
+        torch.cuda.synchronize()
+        t_gather = time.perf_counter() - t0
+        log(f"[C] host clock: spill_filter_compact (front end) {t_front:.3f} s, of which the "
+            f"host window gather of {NC} slots {t_gather:.3f} s")
+
+        reset_counts()
+        ckpt = f"{tmp}/ckpt"
+        try:
+            op_c.execute_corpus(prepared, mc, checkpoint_dir=ckpt, fail_after_shards=2)
+        except RuntimeError as e:
+            if "simulated interruption" not in str(e):
+                raise
+        else:
+            fail("C execute_corpus(fail_after_shards=2) did not stop")
+        stats = {}
+        t0 = time.perf_counter()
+        m = op_c.execute_corpus(prepared, mc, checkpoint_dir=ckpt, stream_stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        resumed = read_counts(names)
+        require_launched(resumed, "C execute_corpus kill + resume")
+        log(f"[C] execute_corpus killed after 2 shards, resumed in {wall:.3f} s, launches "
+            f"(kill + resume) {resumed}, stats {stats}")
+        if stats.get("checkpoint_hits") != 2 or stats.get("checkpoint_writes") != 2:
+            fail(f"C resume: expected 2 checkpoint hits and 2 writes, got {stats}")
+        compare_exact(m, want_scores, "C execute_corpus resumed")
+        del m
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    adaptive = dataclasses.replace(prepared, sides=[dataclasses.replace(
+        s, params=dataclasses.replace(s.params, adaptive_lanes=True)) for s in prepared.sides])
+    reset_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    m = op.execute_sharded(adaptive, docs, shard_docs=SHARD_C, tile_docs=TILE_C,
+                           stream_stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sharded_counts = read_counts(names)
+    require_launched(sharded_counts, "C execute_sharded")
+    log(f"[C] execute_sharded adaptive lanes {wall:.3f} s, launches {sharded_counts} "
+        f"(count-only + emit pass per shard), stats {stats}")
+    compare_exact(m, want_scores, "C execute_sharded")
+    profile_call("C", "execute_sharded", lambda: op.execute_sharded(
+        adaptive, docs, shard_docs=SHARD_C, tile_docs=TILE_C))
+    return straight
+
+
+def phase_d(report, dev):
+    """Entities of up to 40 tokens: execute and execute_sharded through
+    the window_filter kernel, equal to the plain path."""
+    import torch
+
+    from repro_torch.core.cost_model import SideCost
+    from repro_torch.core.eejoin import EEJoinConfig, EEJoinOperator
+    from repro_torch.core.plan import Plan, PlanSide
+    from repro_torch.core.signatures import LshParams
+    from repro_torch.data.synth import make_corpus
+    from repro_torch.extraction import engine
+    from repro_torch.kernels import window_filter as wf
+
+    t0 = time.perf_counter()
+    corpus = make_corpus(num_docs=D_D, doc_len=T, vocab_size=VOCAB, num_entities=NUM_ENTITIES_D,
+                         min_entity_len=2, max_entity_len=MAX_ENTITY_LEN_D, seed=1)
+    L = corpus.dictionary.max_len
+    log(f"[data] make_corpus E={NUM_ENTITIES_D} entity lengths 2..{MAX_ENTITY_LEN_D} D={D_D} "
+        f"T={T}: {time.perf_counter() - t0:.1f} s, L={L}")
+    if L <= 32:
+        fail(f"D: longest entity has {L} tokens; the phase needs more than 32")
+    NC = D_D * T * L
+    z = SideCost(0, 0, 0, 0, 0, 0, 0, 0, 0)
+    cfg = EEJoinConfig(gamma=GAMMA, sim_name="extra", use_kernel=True, max_candidates=NC,
+                       result_capacity=RESULT_CAPACITY, lsh=LshParams(*LSH_D))
+    plan = Plan(0, PlanSide("ssjoin", "lsh"), PlanSide("ssjoin", "lsh"), "job_completion", 0.0,
+                z, z, 0)
+    op = EEJoinOperator(corpus.dictionary, cfg, device=dev)
+    op_plain = EEJoinOperator(corpus.dictionary, dataclasses.replace(cfg, use_kernel=False),
+                              device=dev)
+    t0 = time.perf_counter()
+    prepared = op.prepare(plan)
+    torch.cuda.synchronize()
+    side = prepared.sides[0]
+    K = side.sig_table.bucket_cap * LSH_D[0]
+    log(f"[D] host prepare {time.perf_counter() - t0:.1f} s (ssjoin:lsh {LSH_D[0]} x {LSH_D[1]}); "
+        f"verify N={NC} K={K} L={L}: [N, K, L] inputs {NC * K * L * 8} B")
+    docs = torch.as_tensor(corpus.doc_tokens, device=dev)
+    bits, num_bits, num_hashes = side.flt
+
+    got = wf.window_filter_cuda(docs, bits, num_bits, num_hashes, L)
+    want = wf.window_filter_plain(docs, bits, num_bits, num_hashes, L)
+    torch.cuda.synchronize()
+    err = max_abs_diff(got, want)
+    if err != 0.0:
+        fail(f"window_filter D={D_D} T={T} L={L}: differs from the plain version ({err})")
+    report.worst_err("window_filter", err)
+    del got, want
+    log(f"[check] window_filter D={D_D} T={T} L={L}: bit-identical to the plain version")
+    ms = cuda_time_ms(lambda: wf.window_filter_cuda(docs, bits, num_bits, num_hashes, L), 50)
+    plain = cuda_time_ms(lambda: wf.window_filter_plain(docs, bits, num_bits, num_hashes, L), 5)
+    pos = D_D * T
+    # docs and Bloom words read once, the [D, T, L] bool mask written once;
+    # per token 3 hashes (~10 ops) and 3 probes, per (token, length) ~2 ops
+    nbytes = pos * 4 + bits.numel() * 4 + pos * L
+    b = bound(report, "window_filter", nbytes, pos * (3 * 10 + 3 * 4) + pos * L * 2)
+    report.set("window_filter", route="cuda", source="src/repro_torch/kernels/csrc/window_filter.cu",
+               replaces="src/repro/kernels/window_filter.py:85", ms=ms, plain_ms=plain,
+               library_ms=None)
+    log(f"[time] window_filter D={D_D} T={T} L={L}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+        f"bound {b:.4f} ms ({nbytes} B)")
+    vin = check_verify_of(report, prepared, docs, "D")
+    from repro_torch.kernels import jaccard_verify as jv
+
+    N, Kv, Lv = vin[2].shape
+    ms = cuda_time_ms(lambda: jv.jaccard_verify_cuda(*vin, mode="extra"), 10)
+    plain = cuda_time_ms(lambda: jv.jaccard_verify_plain(*vin, mode="extra"), 2)
+    nbytes = N * Kv * Lv * 8 + N * Lv * 8 + N * Kv * 4
+    log(f"[time] jaccard_verify (rows of L={Lv} > 32: runtime-L kernel) N={N} K={Kv}: "
+        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bytes bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B)")
+    del vin
+
+    reset_counts()
+    names = ("window_filter", "jaccard_verify")
+    t0 = time.perf_counter()
+    m = op.execute(prepared, docs)
+    torch.cuda.synchronize()
+    t_exec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_s = op.execute_sharded(prepared, docs)
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t0
+    launches = read_counts(names)
+    require_launched(launches, "D execute + execute_sharded")
+    c = engine.fused_filter_compact(docs, L, side.flt, side.params)
+    n, over = int(c["n_survive"]), int(c["overflow"])
+    del c
+    log(f"[D] execute {t_exec:.3f} s, execute_sharded {t_shard:.3f} s, launches {launches}, "
+        f"{int(m.count)} matches; survivors {n} of {docs.numel() * L} windows, overflow {over}")
+    if over != 0:
+        fail(f"D: candidate overflow {over}")
+    profile_call("D", "execute", lambda: op.execute(prepared, docs))
+    check_matches_shape(m, D_D, T, L, "D")
+    compare_exact(m_s, match_scores(m), "D execute_sharded", ref="execute's")
+    m_plain = op_plain.execute(plain_prepared(prepared), docs)
+    torch.cuda.synchronize()
+    compare_matches(m, m_plain, lambda e: GAMMA, "D")
+    if int(m.count) == 0:
+        fail("D: no matches")
+    return launches
+
+
+def phase_minhash(report, docs_b):
+    """ops.minhash on every (document, position, length) window of
+    ``docs_b``, equal to the plain form and to window_signatures."""
+    import torch
+
+    from repro_torch.core.dictionary import PAD
+    from repro_torch.core.signatures import LshParams, window_signatures
+    from repro_torch.extraction import engine
+    from repro_torch.kernels import minhash as mh
+    from repro_torch.kernels import ops
+
+    Db, Tb = docs_b.shape
+    Lm = MAX_ENTITY_LEN
+    N = Db * Tb * Lm
+    flat = torch.arange(N, device=docs_b.device)
+    ok = torch.ones(N, dtype=torch.bool, device=docs_b.device)
+    win = engine.candidates_from_flat(docs_b, flat, ok, torch.tensor(N), Lm, N)["win_tokens"]
+    valid = win != PAD
+    reset_counts()
+    outs = {br: ops.minhash(win, valid, *br) for br in MINHASH_BANDS}
+    torch.cuda.synchronize()
+    launches = read_counts(("minhash",))
+    require_launched(launches, "minhash entry point")
+    for br, got in outs.items():
+        want = mh.minhash_plain(win, valid, *br)
+        sig, _ = window_signatures("lsh", win, valid, GAMMA, LshParams(*br))
+        torch.cuda.synchronize()
+        err = max(max_abs_diff(got, want), max_abs_diff(got, sig))
+        if err != 0.0:
+            fail(f"minhash {br[0]} x {br[1]}: differs from the plain version or "
+                 f"window_signatures ({err})")
+        report.worst_err("minhash", err)
+    log(f"[check] minhash N={N} L={Lm} at {MINHASH_BANDS}: bit-identical to the plain version "
+        f"and window_signatures('lsh'); {int((~valid.any(dim=1)).sum())} windows without a "
+        f"valid token; launches {launches}")
+    B, R = MINHASH_BANDS[0]
+    ms = cuda_time_ms(lambda: mh.minhash_cuda(win, valid, B, R), 50)
+    plain = cuda_time_ms(lambda: mh.minhash_plain(win, valid, B, R), 5)
+    # tokens and validity bytes read once, [N, B] u32 written once; per
+    # valid token B*R hashes (~10 ops) and mins, per row B*R combines
+    # (~12 ops)
+    nv = int(valid.sum())
+    nbytes = N * Lm * 4 + N * Lm + N * B * 4
+    b = bound(report, "minhash", nbytes, nv * B * R * 11 + N * (B * R + B) * 12)
+    report.set("minhash", route="cuda", source="src/repro_torch/kernels/csrc/minhash.cu",
+               replaces="src/repro/kernels/minhash.py:66", ms=ms, plain_ms=plain,
+               library_ms=None, launches=launches["minhash"])
+    log(f"[time] minhash N={N} L={Lm} {B} x {R}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+        f"bound {b:.4f} ms ({nbytes} B, {nv} valid tokens)")
 
 
 def card_line() -> str:
@@ -448,8 +821,6 @@ def main() -> int:
     from repro_torch.core.signatures import LshParams
     from repro_torch.data.synth import make_corpus
     from repro_torch.kernels import _build
-    from repro_torch.kernels import fused_probe as fp
-    from repro_torch.kernels import jaccard_verify as jv
 
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -496,11 +867,19 @@ def main() -> int:
     vin = check_verify_of(report, prepared, docs, "A")
     time_kernels(report, docs, flt, NC, L, vin)
     del vin
-    _, launches_a, _ = run_phase("A", op, op_plain, prepared, docs, corpus, corpus.doc_tokens,
-                                 lambda e: 0.0, (0, NUM_ENTITIES), (fp, jv))
+    m_a, launches_a, _ = run_phase("A", op, op_plain, prepared, docs, corpus, corpus.doc_tokens,
+                                   lambda e: 0.0, (0, NUM_ENTITIES),
+                                   ("fused_probe", "jaccard_verify"))
     report.set("fused_probe", launches=launches_a["fused_probe"])
     report.set("jaccard_verify", launches=launches_a["jaccard_verify"])
-    del prepared
+    want_a = match_scores(m_a)
+    del m_a
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- C
+    launches_c = phase_c(report, op, prepared, docs, corpus.doc_tokens, want_a, NC, L)
+    report.set("fused_probe_stream", launches=launches_c["fused_probe_stream"])
+    del prepared, want_a
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- B
@@ -522,9 +901,21 @@ def main() -> int:
     check_fused_probe(report, docs_b, prepared_b.sides[0].flt, NC_B, L, cfg_b.lsh, "B head")
     check_verify_of(report, prepared_b, docs_b, "B")
     run_phase("B", op_b, op_b_plain, prepared_b, docs_b, corpus, corpus.doc_tokens[:D_B],
-              lambda e: GAMMA if e < SPLIT_B else 0.0, (0, NUM_ENTITIES), (fp, jv))
+              lambda e: GAMMA if e < SPLIT_B else 0.0, (0, NUM_ENTITIES),
+              ("fused_probe", "jaccard_verify"))
+    del prepared_b
+    torch.cuda.empty_cache()
 
-    rows = [report.rows["fused_probe"], report.rows["jaccard_verify"]]
+    # ---------------------------------------------------------- minhash
+    phase_minhash(report, docs_b)
+    del docs, docs_b
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- D
+    launches_d = phase_d(report, dev)
+    report.set("window_filter", launches=launches_d["window_filter"])
+
+    rows = [report.rows[n] for n in counters()]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

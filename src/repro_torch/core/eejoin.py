@@ -9,8 +9,11 @@ Usage::
 ``prepare`` builds each plan side's structures on the host (the ISH
 Bloom filter, and a signature table or index partitions) and moves them
 to the operator's device; ``execute`` runs every side there and merges
-the matches. Plan choice (statistics, cost model, search) is not ported
-yet: plans come from the caller.
+the matches. ``execute_sharded`` streams a batch through the candidate
+front end shard by shard, and ``execute_corpus`` streams a corpus that
+lives in a file (``extraction.sharded.MemmapCorpus``), with resumable
+per-shard checkpoints. Plan choice (statistics, cost model, search) is
+not ported yet: plans come from the caller.
 """
 from __future__ import annotations
 
@@ -53,10 +56,13 @@ class EEJoinConfig:
     adaptive_lanes: bool = False
     lane_width: int | None = None
     kernel_sigs: bool | None = None
-    # streaming drivers and online replanning of the reference; carried
-    # for one-for-one configurations, not read by this port yet
+    # streaming paths: the per-shard launch mode (ExtractParams.streamed)
+    # and the device bytes one staged shard of ``execute_corpus`` may use
+    # (None -> sharded.DEFAULT_DEVICE_BUDGET_BYTES)
     streamed: bool | None = None
     device_budget_bytes: int | None = None
+    # online replanning of the reference; carried for one-for-one
+    # configurations, not read by this port yet
     observe_capacity: int = 128
 
 
@@ -192,6 +198,68 @@ class EEJoinOperator:
         if out is None:
             raise ValueError("empty plan: no side has entities")
         return out
+
+    def _streamed_sides(self, prepared: PreparedPlan, front_end, what: str) -> Matches:
+        """Verify every side over the candidates ``front_end(i, side)``
+        gives it, merging the matches."""
+        if not self.config.use_kernel:
+            raise ValueError(
+                f"{what} requires EEJoinConfig(use_kernel=True): candidate "
+                "streaming runs through the probe kernels' compaction epilogue"
+            )
+        out: Matches | None = None
+        for i, side in enumerate(prepared.sides):
+            m = self.side_matches(front_end(i, side), side)
+            out = m if out is None else merge_matches(out, m, self.config.result_capacity)
+        if out is None:
+            raise ValueError("empty plan: no side has entities")
+        return out
+
+    def execute_sharded(self, prepared: PreparedPlan, doc_tokens, mesh=None,
+                        shard_docs: int | None = None, tile_docs: int | None = None,
+                        checkpoint_dir: str | None = None,
+                        stream_stats: dict | None = None) -> Matches:
+        """Streaming execution: each side's candidates come from the
+        sharded streaming front end (``sharded.sharded_filter_compact``),
+        then each side verifies over the merged candidate buffer. Equal to ``execute`` with ``use_kernel=True``, which it
+        requires. ``mesh`` must be None (shards stream on this device);
+        ``checkpoint_dir`` makes the shards resumable (one subdirectory
+        per plan side)."""
+        from repro_torch.extraction import sharded as S
+
+        docs = torch.as_tensor(doc_tokens, dtype=torch.int32, device=self.device).contiguous()
+        return self._streamed_sides(prepared, lambda i, side: S.sharded_filter_compact(
+            docs, prepared.max_entity_len, side.flt, side.params, mesh=mesh,
+            shard_docs=shard_docs, tile_docs=tile_docs,
+            checkpoint_dir=None if checkpoint_dir is None else f"{checkpoint_dir}/side{i}",
+            stream_stats=stream_stats,
+        ), "execute_sharded")
+
+    def execute_corpus(self, prepared: PreparedPlan, corpus, shard_docs: int | None = None,
+                       tile_docs: int | None = None, checkpoint_dir: str | None = None,
+                       stream_stats: dict | None = None,
+                       fail_after_shards: int | None = None) -> Matches:
+        """Corpus-scale execution over a file-backed document set.
+
+        ``corpus`` is a ``sharded.MemmapCorpus`` (or any host [D, T]
+        int32 array): shards are file regions staged through one pinned
+        host buffer and probed by the streamed kernel, so the corpus is
+        never on the device (``config.device_budget_bytes`` sizes the
+        shards). With ``checkpoint_dir`` the per-shard lanes are
+        persisted (one subdirectory per plan side) and an interrupted
+        run resumes to the same matches. Verification runs over the
+        merged candidate buffer as in ``execute``.
+        """
+        from repro_torch.extraction import sharded as S
+
+        cfg = self.config
+        return self._streamed_sides(prepared, lambda i, side: S.spill_filter_compact(
+            corpus, prepared.max_entity_len, side.flt, side.params,
+            device_budget_bytes=cfg.device_budget_bytes, shard_docs=shard_docs,
+            tile_docs=tile_docs,
+            checkpoint_dir=None if checkpoint_dir is None else f"{checkpoint_dir}/side{i}",
+            stream_stats=stream_stats, fail_after_shards=fail_after_shards, device=self.device,
+        ), "execute_corpus")
 
 
 def prepared_from_arrays(arrays: dict[str, np.ndarray], plan: Plan, config: EEJoinConfig,

@@ -7,9 +7,11 @@ capacity and surfaced overflow counters, as in
 
 With ``use_kernel`` the front end is ``fused_filter_compact``: the
 ``fused_probe`` kernel and its compaction epilogue, a merge of the
-per-tile lanes, and a window gather straight from the ``[D, T]`` docs.
-Without it, ``survival_mask`` + ``compact_candidates`` do the same in
-plain PyTorch.
+per-tile lanes, and a window gather straight from the ``[D, T]`` docs
+(windows longer than 32 tokens: the ``window_filter`` kernel and
+``compact_candidates``). Without it, ``survival_mask`` +
+``compact_candidates`` do the same in plain PyTorch. The streaming
+paths over shards of a corpus are in ``extraction.sharded``.
 """
 from __future__ import annotations
 
@@ -88,8 +90,10 @@ class ExtractParams:
     # use_kernel only: emit window signatures inside the kernel; None =
     # ``resolve_sig_mode`` decides, False = post-compaction signatures.
     kernel_sigs: bool | None = None
-    # kernel_compact only: the streamed single-launch driver of the
-    # reference (not ported yet; kept so configurations carry over).
+    # kernel_compact only: launch mode of each shard on the streaming
+    # paths (extraction.sharded): True = one streamed fused_probe_stream
+    # call per shard, False = the per-tile fused_probe loop, None = stream
+    # whenever a shard spans >= 2 tiles.
     streamed: bool | None = None
 
     def __post_init__(self):
@@ -211,21 +215,25 @@ class DeviceDictionary:
 # --------------------------------------------------------------------------
 
 
-def survival_mask(doc_tokens, max_len: int, flt: tuple | None):
-    """[D,T] docs -> (base [D,T,L], survive [D,T,L]), the plain path.
+def survival_mask(doc_tokens, max_len: int, flt: tuple | None, use_kernel: bool = False):
+    """[D,T] docs -> (base [D,T,L], survive [D,T,L]).
 
     Candidate (p, l) survives iff valid (no PAD inside) and, when
     filtering, at least one of its tokens probes into the Bloom filter.
-    (The reference's ``use_kernel`` form runs the ``window_filter``
-    kernel, not ported yet: ROADMAP, queue B item 4.)
+    With ``use_kernel`` the probe is the ``window_filter`` kernel.
     """
     base = window_base(doc_tokens, max_len)
     valid = torch.cumprod((base != PAD).to(torch.int32), dim=-1).bool()
     if flt is None:
         return base, valid
     bits, num_bits, num_hashes = flt
-    tok_hit = token_in_filter(bits, num_bits, num_hashes, base)
-    surv = torch.cumsum(tok_hit.to(torch.int32), dim=-1) > 0
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+
+        surv = kops.window_filter(doc_tokens, bits, num_bits, num_hashes, max_len)
+    else:
+        tok_hit = token_in_filter(bits, num_bits, num_hashes, base)
+        surv = torch.cumsum(tok_hit.to(torch.int32), dim=-1) > 0
     return base, valid & surv
 
 
@@ -297,6 +305,38 @@ def candidates_from_flat(doc_tokens, flat_idx, ok, n_survive, max_len: int,
     lens_mask = (torch.arange(L, device=dev)[None, :] <= l[:, None]) & (cols < T)
     toks = torch.where(lens_mask & ok[:, None], toks, PAD)
     return _candidate_dict(toks, ok, d, p, l, n_survive, max_candidates)
+
+
+def candidates_from_flat_host(doc_tokens, flat_idx, ok, n_survive, max_len: int,
+                              max_candidates: int, device) -> dict:
+    """``candidates_from_flat`` with the window gather on the host.
+
+    ``doc_tokens`` is a host [D, T] int32 array (typically an
+    ``np.memmap``): the spill path selects candidates from per-shard
+    lanes without the corpus ever being on the device, so the [N, L]
+    windows are gathered from the host rows, touching only the N*L
+    tokens they need, and only they are moved to ``device``. Field for
+    field equal to the device gather.
+    """
+    T = doc_tokens.shape[1]
+    L = max_len
+    okh = ok.cpu().numpy()
+    safe = np.maximum(flat_idx.cpu().numpy(), 0).astype(np.int64)
+    d = safe // (T * L)
+    rem = safe % (T * L)
+    p = rem // L
+    l = rem % L  # length-1
+    cols = p[:, None] + np.arange(L)[None, :]  # [N, L]
+    toks = np.asarray(doc_tokens[d[:, None], np.minimum(cols, T - 1)])
+    lens_mask = (np.arange(L)[None, :] <= l[:, None]) & (cols < T)
+    toks = np.where(lens_mask & okh[:, None], toks, PAD).astype(np.int32)
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    return _candidate_dict(t(toks), t(okh), t(d), t(p), t(l), n_survive.to(dev),
+                           max_candidates)
 
 
 def attach_kernel_sigs(cands: dict, kernel_sigs, params: ExtractParams) -> dict:
@@ -389,11 +429,10 @@ def fused_filter_compact(doc_tokens, max_len: int, flt: tuple | None,
     D, T = doc_tokens.shape
     L = max_len
     if L > 32:
-        raise NotImplementedError(
-            f"fused_filter_compact(max_len={L}): windows longer than 32 "
-            "tokens need the window_filter kernel, which is not ported yet "
-            "(ROADMAP, queue B item 4)"
-        )
+        # the packed bitmap holds one length per uint32 bit; longer
+        # windows go through the window_filter kernel + dense compaction
+        base, surv = survival_mask(doc_tokens, max_len, flt, use_kernel=True)
+        return compact_candidates(base, surv, params.max_candidates)
     if sig_mode is None:
         sig_mode = resolve_sig_mode(params, D, T, L)
     lsh = sig_mode == SIG_MODE_LSH

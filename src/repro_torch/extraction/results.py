@@ -1,8 +1,11 @@
-"""Fixed-capacity extraction result buffers and candidate-lane merges."""
+"""Fixed-capacity extraction result buffers, candidate-lane merges and
+per-shard lane checkpoints."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
+import numpy as np
 import torch
 
 
@@ -94,6 +97,43 @@ def gather_from_tiles(counts, payload, capacity: int, fill=0):
     out = payload[gs, within.clamp(0, C - 1)]
     mask = ok.reshape(ok.shape + (1,) * (out.ndim - 1))
     return torch.where(mask, out, fill)
+
+
+def save_lane_checkpoint(path: str, lane, count, keys=None) -> None:
+    """Persist one shard's lane wire unit ``(lane, count[, keys])`` to disk.
+
+    The npz holds ``lane`` and ``count`` as int32 and ``keys`` as uint32,
+    the reference's file format, so checkpoints written by either package
+    resume in the other. Written atomically (tmp file + ``os.replace``):
+    a kill mid-write leaves the old file or none, never a torn one.
+    """
+    arrays = {
+        "lane": lane.cpu().numpy().astype(np.int32),
+        "count": count.cpu().numpy().astype(np.int32),
+    }
+    if keys is not None:
+        arrays["keys"] = keys.cpu().numpy().astype(np.uint32)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def load_lane_checkpoint(path: str, device):
+    """Load a shard lane persisted by ``save_lane_checkpoint``.
+
+    Returns ``(lane [1, NC] int32, count [1] int32, keys [1, NC, 2] int64
+    holding uint32 | None)`` on ``device``, ready to concatenate into the
+    ``select_from_tiles`` merge beside freshly probed lanes.
+    """
+    with np.load(path) as z:
+        lane = torch.as_tensor(z["lane"].astype(np.int32), device=device)
+        count = torch.as_tensor(z["count"].astype(np.int32), device=device)
+        keys = (torch.as_tensor(z["keys"].astype(np.int64), device=device)
+                if "keys" in z.files else None)
+    return lane, count, keys
 
 
 def compact_matches(hit_mask, doc, pos, length, entity, score, capacity: int) -> Matches:

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels in ``csrc/``.
 
-Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
+Each ``csrc/<name>.cu`` has a plain C interface (``csrc/*.cuh`` hold
+device code that several sources include). It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch/`` at the root
 of the checkout, keyed by a hash of its source and flags, and loaded
 with ``ctypes`` at first use. ``build()`` compiles several sources in
@@ -17,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("fused_probe", "jaccard_verify")
+KERNELS = ("fused_probe", "fused_probe_stream", "jaccard_verify", "window_filter", "minhash")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -38,7 +39,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's key
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

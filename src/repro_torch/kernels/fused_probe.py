@@ -28,7 +28,14 @@ Two forms of the same function:
   the whole batch; the CPU path and the oracle of the kernel;
 * ``fused_probe_cuda``: the CUDA kernel in ``csrc/fused_probe.cu``.
 
-``kernels.ops`` picks between them by the device of the tensors.
+The streamed form of the reference (``fused_probe_stream_pallas``) runs
+the same probe and epilogue over a whole shard of ``G`` pre-padded
+``[bd, T]`` chunks and returns only the per-chunk counts, lanes and
+keys, with chunk ``g``'s flat indices based at ``row_offs[g]`` rows:
+``fused_probe_stream_plain`` and ``fused_probe_stream_cuda``
+(``csrc/fused_probe_stream.cu``).
+
+``kernels.ops`` picks between the forms by the device of the tensors.
 Hash-valued outputs (``packed``, ``sigs``, ``vkeys``) are int64 tensors
 holding uint32 values (see ``core.hashing``).
 """
@@ -62,6 +69,8 @@ _SIG_MODE_CODE = {SIG_MODE_NONE: 0, SIG_MODE_LSH: 1, SIG_MODE_VARIANT: 2}
 
 #: launches of the CUDA kernel since the last reset (one per wrapper call)
 launches = 0
+#: launches of the streamed CUDA kernel since the last reset
+stream_launches = 0
 
 
 def compact_tile_height(D: int, T: int, candidates: int) -> int:
@@ -292,6 +301,68 @@ def fused_probe_plain(doc_tokens, bits, num_bits: int, num_hashes: int, max_len:
     )
 
 
+def check_stream_args(doc_tokens, row_offs, max_len: int, sig_mode: str, bd: int,
+                      candidates: int) -> int:
+    """The streamed form's argument rules (the reference's); returns G."""
+    if sig_mode not in (SIG_MODE_NONE, SIG_MODE_VARIANT):
+        raise ValueError(
+            "streamed kernel emits no dense signature tensor: sig_mode "
+            f"{sig_mode!r} unsupported (lsh band sigs are recomputed "
+            "post-compaction on streaming paths)"
+        )
+    if candidates <= 0:
+        raise ValueError("streamed kernel has no bitmap output: candidates > 0 required")
+    check_args(doc_tokens, max_len, sig_mode, candidates, False)
+    R = doc_tokens.shape[0]
+    if bd < 1 or R % bd != 0:
+        raise ValueError(
+            f"streamed input rows ({R}) must be a multiple of bd ({bd}): "
+            "callers pre-pad each upstream tile to full chunk height"
+        )
+    G = R // bd
+    if tuple(row_offs.shape) != (G,):
+        raise ValueError(f"row_offs must be [G={G}], got {tuple(row_offs.shape)}")
+    return G
+
+
+def fused_probe_stream_plain(doc_tokens, bits, row_offs, num_bits: int, num_hashes: int,
+                             max_len: int, sig_mode: str = SIG_MODE_NONE,
+                             use_filter: bool = True, bd: int = DEFAULT_BD,
+                             candidates: int = 0, count_only: bool = False):
+    """Plain PyTorch form of the streamed probe; returns ``(counts, cands, vkeys)``.
+
+    Same contract as ``repro.kernels.fused_probe.fused_probe_stream_pallas``:
+    ``doc_tokens`` [G*bd, T] pre-padded, ``row_offs`` [G] absolute doc-row
+    offsets; ``counts`` [G] int32, ``cands`` [G, C] int32 ascending global
+    flat indices ``row_offs[g]*T*L + ((r - g*bd)*T + t)*L + l`` (-1 pad),
+    ``vkeys`` [G, C, 2] (variant); ``count_only`` gives ``counts`` alone.
+    Rows are independent in the recurrence, so the chunks run as one batch.
+    """
+    G = check_stream_args(doc_tokens, row_offs, max_len, sig_mode, bd, candidates)
+    R, T = doc_tokens.shape
+    L = max_len
+    cand_cap = 0 if count_only else candidates
+    var = sig_mode == SIG_MODE_VARIANT and cand_cap > 0
+    pack, row_count, _, keys = _probe_recurrence(
+        doc_tokens.to(torch.int64), bits, num_bits=num_bits, num_hashes=num_hashes,
+        max_len=L, bands=1, rows=1, use_filter=use_filter,
+        sig_mode=SIG_MODE_VARIANT if var else SIG_MODE_NONE, dense_sigs=False,
+    )
+    counts = row_count.reshape(G, bd).sum(dim=1)
+    cands = vkeys = None
+    if cand_cap:
+        span = bd * T
+        flat, ok = _emit_lanes(pack.reshape(G, span), counts, cand_cap, L)
+        base = row_offs.to(torch.int64)[:, None] * (T * L)
+        cands = torch.where(ok, base + flat, -1).to(torch.int32)
+        if var:
+            sel = flat.clamp(0, span * L - 1)
+            vkeys = torch.stack(
+                [torch.where(ok, k.reshape(G, span * L).gather(1, sel), 0) for k in keys], -1
+            )
+    return counts.to(torch.int32), cands, vkeys
+
+
 # --------------------------------------------------------------------------
 # CUDA binding
 # --------------------------------------------------------------------------
@@ -316,8 +387,41 @@ def _lib():
     return lib
 
 
+def _stream_lib():
+    lib = _build.load("fused_probe_stream")
+    if not getattr(lib, "_typed", False):
+        lib.fused_probe_stream_launch.argtypes = [
+            _P, ctypes.c_int, ctypes.c_int, _P,  # docs, R, T, row_offs
+            _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, mode, bd, C
+            _P, _P, _P, _P, _P, _P, _P,
+        ]
+        lib.fused_probe_stream_launch.restype = ctypes.c_int
+        lib.fused_probe_stream_segment.argtypes = []
+        lib.fused_probe_stream_segment.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
+
+
+def check_cuda_inputs(fn: str, doc_tokens, bits, use_filter: bool, num_bits: int,
+                       **more) -> None:
+    """Device, type, shape and contiguity of a Bloom-probing kernel's inputs."""
+    for name, t in (("doc_tokens", doc_tokens), ("bits", bits), *more.items()):
+        if not t.is_cuda or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(
+                f"{fn}: {name} must be a contiguous torch.int32 CUDA tensor, "
+                f"got {t.dtype} on {t.device}"
+            )
+        if t.device != doc_tokens.device:
+            raise ValueError(f"{fn}: {name} must be on the docs' device {doc_tokens.device}")
+    if bits.dim() != 1:
+        raise ValueError(f"{fn}: bits must be a 1-D tensor")
+    if use_filter and (num_bits % 32 or bits.numel() * 32 != num_bits or num_bits >= 2**32):
+        raise ValueError(f"{fn}: {bits.numel()} words do not hold {num_bits} bits")
 
 
 def fused_probe_cuda(doc_tokens, bits, num_bits: int, num_hashes: int, max_len: int,
@@ -327,16 +431,7 @@ def fused_probe_cuda(doc_tokens, bits, num_bits: int, num_hashes: int, max_len: 
     """CUDA form of ``fused_probe_plain``: same arguments, same outputs."""
     global launches
     check_args(doc_tokens, max_len, sig_mode, candidates, count_only)
-    for name, t, dtype in (("doc_tokens", doc_tokens, torch.int32), ("bits", bits, torch.int32)):
-        if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(
-                f"fused_probe_cuda: {name} must be a contiguous {dtype} CUDA tensor, "
-                f"got {t.dtype} on {t.device}"
-            )
-    if bits.device != doc_tokens.device or bits.dim() != 1:
-        raise ValueError("fused_probe_cuda: bits must be a 1-D tensor on the docs' device")
-    if use_filter and (num_bits % 32 or bits.numel() * 32 != num_bits or num_bits >= 2**32):
-        raise ValueError(f"fused_probe_cuda: {bits.numel()} words do not hold {num_bits} bits")
+    check_cuda_inputs("fused_probe_cuda", doc_tokens, bits, use_filter, num_bits)
     if bands * rows > 32:
         raise ValueError(f"fused_probe_cuda: bands*rows={bands * rows} > 32 row minima")
     D, T = doc_tokens.shape
@@ -376,3 +471,46 @@ def fused_probe_cuda(doc_tokens, bits, num_bits: int, num_hashes: int, max_len: 
     if rc != 0:
         raise RuntimeError(f"fused_probe kernel launch failed with CUDA error {rc}")
     return packed, sigs, counts, cands, vkeys
+
+
+def fused_probe_stream_cuda(doc_tokens, bits, row_offs, num_bits: int, num_hashes: int,
+                            max_len: int, sig_mode: str = SIG_MODE_NONE,
+                            use_filter: bool = True, bd: int = DEFAULT_BD,
+                            candidates: int = 0, count_only: bool = False):
+    """CUDA form of ``fused_probe_stream_plain``: same arguments, same outputs.
+
+    The packed survival bitmap and per-segment counts are scratch that
+    this wrapper allocates; only counts, lanes and keys are returned.
+    """
+    global stream_launches
+    G = check_stream_args(doc_tokens, row_offs, max_len, sig_mode, bd, candidates)
+    check_cuda_inputs("fused_probe_stream_cuda", doc_tokens, bits, use_filter, num_bits,
+                       row_offs=row_offs)
+    R, T = doc_tokens.shape
+    L = max_len
+    if R * T * L >= 2**31:
+        raise ValueError(f"flat window index space {R}x{T}x{L} overflows int32")
+    cand_cap = 0 if count_only else candidates
+    var = sig_mode == SIG_MODE_VARIANT and cand_cap > 0
+    dev = doc_tokens.device
+    lib = _stream_lib()
+    nseg = -(-T // lib.fused_probe_stream_segment())
+    i64, i32 = torch.int64, torch.int32
+    packed = torch.empty((R, T), dtype=i64, device=dev)  # scratch
+    seg_counts = torch.empty((R * nseg,), dtype=i32, device=dev)
+    seg_offs = torch.empty((R * nseg,), dtype=i32, device=dev) if cand_cap else None
+    counts = torch.empty((G,), dtype=i32, device=dev)
+    cands = torch.empty((G, cand_cap), dtype=i32, device=dev) if cand_cap else None
+    vkeys = torch.empty((G, cand_cap, 2), dtype=i64, device=dev) if var else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.fused_probe_stream_launch(
+        doc_tokens.data_ptr(), R, T, row_offs.data_ptr(),
+        bits.data_ptr(), num_bits, bits.numel(), num_hashes, int(use_filter),
+        L, _SIG_MODE_CODE[SIG_MODE_VARIANT if var else SIG_MODE_NONE], bd, cand_cap,
+        packed.data_ptr(), counts.data_ptr(), _ptr(cands), _ptr(vkeys),
+        seg_counts.data_ptr(), _ptr(seg_offs), stream,
+    )
+    stream_launches += 1
+    if rc != 0:
+        raise RuntimeError(f"fused_probe_stream kernel launch failed with CUDA error {rc}")
+    return counts, cands, vkeys

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.kernels import fused_probe as _fp
 from repro_torch.kernels import jaccard_verify as _jv
+from repro_torch.kernels import minhash as _mh
+from repro_torch.kernels import window_filter as _wf
 
 
 def _form(t: torch.Tensor, plain, cuda):
@@ -54,14 +56,29 @@ def jaccard_verify(win_tokens, ent_ids, dict_tokens, token_weight, sim_name: str
     return torch.where(ent_ids >= 0, scores, torch.zeros_like(scores))
 
 
+def minhash(tokens, valid, bands: int, rows: int):
+    """[N, L] tokens -> [N, bands] banded MinHash signatures (int64
+    holding uint32)."""
+    return _form(tokens, _mh.minhash_plain, _mh.minhash_cuda)(tokens, valid, bands, rows)
+
+
+def window_filter(doc_tokens, bits, num_bits: int, num_hashes: int, max_len: int):
+    """[D, T] docs -> [D, T, L] bool window-survival mask (Bloom probe)."""
+    wf = _form(doc_tokens, _wf.window_filter_plain, _wf.window_filter_cuda)
+    return wf(doc_tokens, bits, num_bits, num_hashes, max_len)
+
+
+def _filter_args(flt, device):
+    """(bits, num_bits, num_hashes, use_filter) of a filter triple or None."""
+    if flt is None:
+        return torch.zeros((8,), dtype=torch.int32, device=device), 256, 1, False
+    bits, num_bits, num_hashes = flt
+    return bits, num_bits, num_hashes, True
+
+
 def _probe(doc_tokens, flt, max_len, sig_mode, bands, rows, candidates,
            bd: int = _fp.DEFAULT_BD, count_only: bool = False):
-    if flt is None:
-        bits = torch.zeros((8,), dtype=torch.int32, device=doc_tokens.device)
-        num_bits, num_hashes, use_filter = 256, 1, False
-    else:
-        bits, num_bits, num_hashes = flt
-        use_filter = True
+    bits, num_bits, num_hashes, use_filter = _filter_args(flt, doc_tokens.device)
     probe = _form(doc_tokens, _fp.fused_probe_plain, _fp.fused_probe_cuda)
     return probe(
         doc_tokens, bits, num_bits=num_bits, num_hashes=num_hashes, max_len=max_len,
@@ -139,3 +156,45 @@ def fused_probe_count(doc_tokens, flt: tuple | None, max_len: int, candidates: i
     _, _, counts, _, _ = _probe(doc_tokens, flt, max_len, _fp.SIG_MODE_NONE, 4, 2,
                                 candidates, bd=bd, count_only=True)
     return counts
+
+
+def fused_probe_stream(doc_tokens, flt: tuple | None, max_len: int, candidates: int, row_offs,
+                       sig_mode: str = _fp.SIG_MODE_NONE, bd: int | None = None,
+                       lane_width: int | None = None, count_only: bool = False):
+    """Streamed probe over a whole shard: one call, ``G`` chunks.
+
+    ``doc_tokens`` [G*bd, T] must be pre-padded so each [bd, T] chunk is
+    full height; ``row_offs`` [G] int32 (on the docs' device) carries each
+    chunk's absolute doc-row offset, which keeps flat indices
+    bit-identical to the per-tile loop. Returns ``(counts [G], cands
+    [G, W], vkeys)``: ``fused_probe_compact``'s lanes without the packed
+    bitmap or dense signatures (``sig_mode="lsh"`` raises).
+    ``count_only=True`` is the adaptive sizing pass: ``counts`` alone.
+    """
+    if candidates <= 0:
+        raise ValueError(
+            f"fused_probe_stream(candidates={candidates}): the streamed "
+            "kernel has no bitmap output, so it always runs the compaction "
+            "epilogue — a positive merge capacity (NC = "
+            "ExtractParams.max_candidates) is required"
+        )
+    if max_len > 32:
+        raise ValueError(
+            f"fused_probe_stream(max_len={max_len}): the packed survival "
+            "bitmap holds one window length per uint32 bit, so the "
+            "streamed epilogue supports max_len <= 32"
+        )
+    if lane_width is not None and not 0 < lane_width <= candidates:
+        raise ValueError(
+            f"fused_probe_stream(lane_width={lane_width}): the emit-pass "
+            f"lane width must be in (0, candidates={candidates}]"
+        )
+    bits, num_bits, num_hashes, use_filter = _filter_args(flt, doc_tokens.device)
+    if bd is None:
+        bd = _fp.compact_tile_height(doc_tokens.shape[0], doc_tokens.shape[1], candidates)
+    stream = _form(doc_tokens, _fp.fused_probe_stream_plain, _fp.fused_probe_stream_cuda)
+    return stream(
+        doc_tokens, bits, row_offs, num_bits=num_bits, num_hashes=num_hashes, max_len=max_len,
+        sig_mode=sig_mode, use_filter=use_filter, bd=bd, candidates=lane_width or candidates,
+        count_only=count_only,
+    )

@@ -14,9 +14,12 @@ from repro_torch.core.cost_model import SideCost
 from repro_torch.core.eejoin import EEJoinConfig, EEJoinOperator
 from repro_torch.core.plan import Plan, PlanSide
 from repro_torch.data.synth import make_corpus
+from repro_torch.extraction import sharded
 from repro_torch.kernels import fused_probe as fp
 from repro_torch.kernels import jaccard_verify as jv
+from repro_torch.kernels import minhash as mh
 from repro_torch.kernels import ops
+from repro_torch.kernels import window_filter as wf
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +107,107 @@ def test_execute_kernel_path_equals_plain_path(cuda_device, scheme):
         m = op.execute(op.prepare(plan), c.doc_tokens)
         out.append((m.to_set(), int(m.count)))
     assert out[0] == out[1] and out[0][1] > 0
+
+
+STREAM_MODES = [("none", 48, False), ("none", 48, True), ("variant", 48, False),
+                ("variant", 5, False), ("variant", 300 * 37 * 8, False)]
+
+
+@pytest.mark.parametrize("sig_mode,candidates,count_only", STREAM_MODES)
+@pytest.mark.parametrize("num_bits", [1 << 12, 1 << 20])
+def test_fused_probe_stream_cuda_matches_plain(cuda_device, sig_mode, candidates, count_only,
+                                               num_bits):
+    rng = np.random.default_rng(5)
+    docs = torch.as_tensor(_docs(rng, 36, 300), device=cuda_device)
+    docs[12:24] = 0  # a PAD-only tile
+    bits = torch.as_tensor(_bits(rng, num_bits, 0.1).view(np.int32), device=cuda_device)
+    for td, bd in ((12, 8), (12, 12), (12, 1)):
+        sdocs, offs = sharded._streamed_layout(docs, td, 3, bd)
+        row_offs = torch.as_tensor(offs + 1000, device=cuda_device)
+        kw = dict(max_len=8, sig_mode=sig_mode, bd=bd, candidates=candidates,
+                  count_only=count_only)
+        got = fp.fused_probe_stream_cuda(sdocs, bits, row_offs, num_bits, 3, **kw)
+        want = fp.fused_probe_stream_plain(sdocs, bits, row_offs, num_bits, 3, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("L", [33, 40, 8])
+@pytest.mark.parametrize("num_bits", [1 << 12, 1 << 20])
+def test_window_filter_cuda_matches_plain(cuda_device, L, num_bits):
+    rng = np.random.default_rng(L)
+    docs = torch.as_tensor(_docs(rng, 13, 600), device=cuda_device)
+    bits = torch.as_tensor(_bits(rng, num_bits, 0.1).view(np.int32), device=cuda_device)
+    got = wf.window_filter_cuda(docs, bits, num_bits, 3, L)
+    want = wf.window_filter_plain(docs, bits, num_bits, 3, L)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bands,rows", [(4, 2), (2, 4), (1, 8), (4, 8)])
+def test_minhash_cuda_matches_plain(cuda_device, bands, rows):
+    rng = np.random.default_rng(bands * rows)
+    toks = torch.as_tensor(_docs(rng, 5000, 8, vocab=60000, pad_frac=0.3), device=cuda_device)
+    valid = toks != 0
+    valid[:3] = False
+    got = mh.minhash_cuda(toks, valid, bands, rows)
+    want = mh.minhash_plain(toks, valid, bands, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_ops_launch_the_new_kernels_on_cuda_tensors(cuda_device):
+    rng = np.random.default_rng(1)
+    docs = torch.as_tensor(_docs(rng, 8, 64), device=cuda_device)
+    bits = torch.as_tensor(_bits(rng, 1 << 12, 0.1).view(np.int32), device=cuda_device)
+    before = (fp.stream_launches, wf.launches, mh.launches)
+    ops.fused_probe_stream(docs, (bits, 1 << 12, 3), 4, 64,
+                           torch.zeros((2,), dtype=torch.int32, device=cuda_device), bd=4)
+    ops.window_filter(docs, bits, 1 << 12, 3, 40)
+    ops.minhash(docs, docs != 0, 2, 4)
+    assert (fp.stream_launches, wf.launches, mh.launches) == tuple(b + 1 for b in before)
+
+
+@pytest.mark.parametrize("scheme", [("index", "variant"), ("ssjoin", "lsh")])
+def test_streaming_paths_equal_execute(cuda_device, tmp_path, scheme):
+    """execute_sharded and execute_corpus (pinned staging over several
+    shards, a kill and a resume) give execute's matches on the card."""
+    c = make_corpus(num_docs=24, doc_len=128, vocab_size=1024, num_entities=200, seed=2)
+    z = SideCost(0, 0, 0, 0, 0, 0, 0, 0, 0)
+    plan = Plan(0, PlanSide(*scheme), PlanSide(*scheme), "job_completion", 0.0, z, z, 0)
+    op = EEJoinOperator(c.dictionary, EEJoinConfig(use_kernel=True, max_candidates=24 * 128 * 5,
+                                                   device_budget_bytes=4 * 128 * 4 * 2),
+                        device=cuda_device)
+    prep = op.prepare(plan)
+    want = op.execute(prep, c.doc_tokens).to_set()
+    assert want
+    before = fp.stream_launches
+    assert op.execute_sharded(prep, c.doc_tokens, shard_docs=8, tile_docs=3).to_set() == want
+    corpus = sharded.MemmapCorpus.write(str(tmp_path / "corpus"), c.doc_tokens)
+    ckpt = str(tmp_path / "ckpt")
+    with pytest.raises(RuntimeError, match="simulated interruption"):
+        op.execute_corpus(prep, corpus, tile_docs=2, checkpoint_dir=ckpt, fail_after_shards=3)
+    assert op.execute_corpus(prep, corpus, tile_docs=2, checkpoint_dir=ckpt).to_set() == want
+    assert op.execute_corpus(prep, corpus, tile_docs=2).to_set() == want
+    assert fp.stream_launches > before
+
+
+def test_execute_long_entities_kernel_path_equals_plain(cuda_device):
+    c = make_corpus(num_docs=8, doc_len=128, vocab_size=1024, num_entities=100,
+                    min_entity_len=2, max_entity_len=40, seed=3)
+    z = SideCost(0, 0, 0, 0, 0, 0, 0, 0, 0)
+    plan = Plan(0, PlanSide("index", "prefix"), PlanSide("index", "prefix"), "job_completion",
+                0.0, z, z, 0)
+    out = []
+    before = wf.launches
+    for use_kernel in (True, False):
+        op = EEJoinOperator(c.dictionary, EEJoinConfig(use_kernel=use_kernel,
+                                                       max_candidates=8 * 128 * 40),
+                            device=cuda_device)
+        m = op.execute(op.prepare(plan), c.doc_tokens)
+        out.append((m.to_set(), int(m.count)))
+    assert out[0] == out[1] and out[0][1] > 0
+    assert wf.launches == before + 1

@@ -108,10 +108,40 @@ def test_unfused_front_end_matches_reference(pad_frac, with_filter):
                             r_eng.compact_candidates(rb, rs, NC))
 
 
-def test_long_windows_name_the_missing_kernel():
-    params = t_eng.ExtractParams(gamma=GAMMA, scheme="word", use_kernel=True)
-    with pytest.raises(NotImplementedError, match="window_filter"):
-        t_eng.fused_filter_compact(torch.ones((2, 40), dtype=torch.int32), 33, None, params)
+@pytest.mark.parametrize("L,NC", [(33, 4096), (40, 4096), (40, 100)])
+def test_long_windows_name_the_missing_kernel(L, NC):
+    """Windows longer than 32 tokens, once refused for want of the
+    window_filter kernel, run through it (its plain form here) and give
+    the reference's candidates, overflow included."""
+    rng = np.random.default_rng(L + NC)
+    docs = _docs(rng, 5, 48, vocab=400, pad_frac=0.1)
+    rflt, tflt = _filter(rng, density=0.3)
+    kw = dict(gamma=GAMMA, scheme="prefix", max_candidates=NC, use_kernel=True)
+    want = r_eng.fused_filter_compact(jnp.asarray(docs), L, rflt, r_eng.ExtractParams(**kw))
+    got = t_eng.fused_filter_compact(torch.as_tensor(docs), L, tflt, t_eng.ExtractParams(**kw))
+    _assert_cands_equal(got, want)
+    assert 0 < int(got["n_survive"]) < docs.size * L
+    tb, ts = t_eng.survival_mask(torch.as_tensor(docs), L, tflt, use_kernel=True)
+    assert torch.equal(ts, t_eng.survival_mask(torch.as_tensor(docs), L, tflt)[1])
+
+
+@pytest.mark.parametrize("scheme", [("index", "prefix"), ("ssjoin", "lsh")])
+def test_execute_long_entities_matches_reference(scheme):
+    """execute(use_kernel=True) and execute_sharded at L > 32 equal the
+    reference's match set."""
+    c = make_corpus(num_docs=4, doc_len=64, vocab_size=512, num_entities=30, min_entity_len=2,
+                    max_entity_len=40, seed=5)
+    assert c.dictionary.max_len > 32
+    rplan, tplan = _plans(0, scheme, scheme)
+    cfg = dict(gamma=GAMMA, use_kernel=True, max_candidates=4 * 64 * c.dictionary.max_len,
+               result_capacity=4096)
+    rop = ROperator(c.dictionary, RConfig(**cfg))
+    want = rop.execute(rop.prepare(rplan), jnp.asarray(c.doc_tokens))
+    assert len(want.to_set()) > 0
+    top = TOperator(c.dictionary, TConfig(**cfg), device=CPU)
+    tprep = top.prepare(tplan)
+    _assert_same_matches(top.execute(tprep, c.doc_tokens), want, GAMMA)
+    _assert_same_matches(top.execute_sharded(tprep, c.doc_tokens, shard_docs=2), want, GAMMA)
 
 
 def test_extract_params_validation():

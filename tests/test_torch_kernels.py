@@ -1,9 +1,11 @@
 """The port's kernels against the JAX package's Pallas kernels.
 
 The plain PyTorch forms must equal ``fused_probe_pallas`` (bit for bit:
-packed bitmap, dense signatures, tile counts, lanes and variant keys)
-and ``jaccard_verify_pallas`` (within 1e-6), both run in interpret mode
-as the JAX package's own tests run them. ``test_torch_cuda.py`` holds
+packed bitmap, dense signatures, tile counts, lanes and variant keys),
+``fused_probe_stream_pallas``, ``window_filter_pallas`` and
+``minhash_pallas`` (bit for bit) and ``jaccard_verify_pallas`` (within
+1e-6), all run in interpret mode as the JAX package's own tests run
+them. ``test_torch_cuda.py`` holds
 the CUDA kernels against the plain forms on the card.
 """
 import numpy as np
@@ -12,12 +14,20 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.core.signatures import LshParams as RLshParams
+from repro.core.signatures import _minhash_np
 from repro.core.variants import window_variant_key
 from repro.kernels import fused_probe as r_fp
+from repro.kernels import ref as r_ref
 from repro.kernels.jaccard_verify import jaccard_verify_pallas
+from repro.kernels.minhash import minhash_pallas
+from repro.kernels.window_filter import window_filter_pallas
+from repro_torch.extraction.sharded import _streamed_layout
 from repro_torch.kernels import fused_probe as t_fp
 from repro_torch.kernels import jaccard_verify as t_jv
+from repro_torch.kernels import minhash as t_mh
 from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import window_filter as t_wf
 
 hypothesis = pytest.importorskip("hypothesis")
 from hypothesis import given, settings  # noqa: E402
@@ -225,3 +235,146 @@ def test_jaccard_verify_checks():
         t_jv.jaccard_verify_plain(win, win_w, ent, ent_w, mode="jaccard")
     with pytest.raises(ValueError, match=r"ent \[N, K, L\]"):
         t_jv.jaccard_verify_plain(win, win_w, ent[:, :, :4], ent_w, mode="extra")
+
+
+# ------------------------------------------------------------ B3 streamed
+
+# (sig_mode, count_only, use_filter, C, edit): 3 tiles of td=12 rows at
+# bd=8 (td % bd != 0, so every tile carries 4 PAD rows), row base 40
+STREAM_PROBE_CASES = [
+    ("none", False, True, 64, None), ("variant", False, True, 64, None),
+    ("none", True, True, 64, None), ("variant", True, True, 64, None),
+    ("none", False, False, 64, None), ("variant", False, False, 64, None),
+    ("variant", False, True, 5, None),  # lanes overflow: true counts exceed C
+    ("variant", False, True, 64, "pad_tile"),  # tile 1 all PAD
+    ("none", False, True, 64, "no_survivors"),  # empty filter
+]
+
+
+@pytest.mark.parametrize("sig_mode,count_only,use_filter,C,edit", STREAM_PROBE_CASES)
+def test_fused_probe_stream_plain_matches_pallas(sig_mode, count_only, use_filter, C, edit):
+    rng = np.random.default_rng(41)
+    docs = _docs(rng, 36, 48, vocab=300, pad_frac=0.1)
+    bits = _bits(rng, 1 << 12, density=0.2)
+    if edit == "pad_tile":
+        docs[12:24] = 0
+    if edit == "no_survivors":
+        bits[:] = 0
+    sdocs, offs = _streamed_layout(torch.as_tensor(docs), 12, 3, 8)
+    row_offs = offs + 40
+    kw = dict(num_bits=1 << 12, num_hashes=3, max_len=6, sig_mode=sig_mode,
+              use_filter=use_filter, bd=8, candidates=C, count_only=count_only)
+    want = r_fp.fused_probe_stream_pallas(jnp.asarray(sdocs.numpy()), jnp.asarray(bits),
+                                          jnp.asarray(row_offs), interpret=True, **kw)
+    got = t_fp.fused_probe_stream_plain(sdocs, torch.as_tensor(bits.view(np.int32)),
+                                        torch.as_tensor(row_offs), **kw)
+    for name, r, g in zip(("counts", "cands", "vkeys"), want, got):
+        assert (r is None) == (g is None), name
+        if r is not None:
+            np.testing.assert_array_equal(_as_u32(g).astype(np.asarray(r).dtype), np.asarray(r),
+                                          err_msg=name)
+    counts = got[0].numpy()
+    if edit == "pad_tile":
+        assert not counts[2:4].any() and counts[:2].any()
+    if edit == "no_survivors":
+        assert not counts.any()
+    if C == 5:
+        assert counts.max() > 5
+
+
+def test_fused_probe_stream_equals_per_tile_probe():
+    """Chunk g's lanes are the per-tile probe's lanes of the same rows,
+    based at row_offs[g]."""
+    rng = np.random.default_rng(42)
+    docs = torch.as_tensor(_docs(rng, 16, 40, vocab=300))
+    bits = torch.as_tensor(_bits(rng, 1 << 12, density=0.2).view(np.int32))
+    row_offs = torch.tensor([0, 8, 100, 300], dtype=torch.int32)
+    counts, cands, vkeys = t_fp.fused_probe_stream_plain(
+        docs, bits, row_offs, 1 << 12, 3, 5, sig_mode="variant", bd=4, candidates=32)
+    for g in range(4):
+        _, _, c, x, k = t_fp.fused_probe_plain(docs[4 * g:4 * g + 4], bits, 1 << 12, 3, 5,
+                                               sig_mode="variant", bd=4, candidates=32)
+        assert torch.equal(counts[g:g + 1], c) and torch.equal(vkeys[g:g + 1], k)
+        base = int(row_offs[g]) * 40 * 5
+        assert torch.equal(cands[g:g + 1], torch.where(x >= 0, x + base, -1))
+
+
+def test_fused_probe_stream_argument_checks():
+    docs = torch.ones((8, 16), dtype=torch.int32)
+    bits = torch.zeros((8,), dtype=torch.int32)
+    offs = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="dense signature"):
+        t_fp.fused_probe_stream_plain(docs, bits, offs, 256, 1, 4, sig_mode="lsh", bd=4,
+                                      candidates=8)
+    with pytest.raises(ValueError, match="candidates > 0"):
+        t_fp.fused_probe_stream_plain(docs, bits, offs, 256, 1, 4, bd=4)
+    with pytest.raises(ValueError, match="multiple of bd"):
+        t_fp.fused_probe_stream_plain(docs, bits, offs, 256, 1, 4, bd=3, candidates=8)
+    with pytest.raises(ValueError, match="row_offs"):
+        t_fp.fused_probe_stream_plain(docs, bits, offs[:1], 256, 1, 4, bd=4, candidates=8)
+    with pytest.raises(ValueError, match="candidates=0"):
+        t_ops.fused_probe_stream(docs, None, 4, 0, offs)
+    with pytest.raises(ValueError, match="max_len=33"):
+        t_ops.fused_probe_stream(docs, None, 33, 8, offs)
+    with pytest.raises(ValueError, match="lane_width=9"):
+        t_ops.fused_probe_stream(docs, None, 4, 8, offs, lane_width=9)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_fp.fused_probe_stream_cuda(docs, bits, offs, 256, 1, 4, bd=4, candidates=8)
+
+
+# ------------------------------------------------------------ B4 window filter
+
+@pytest.mark.parametrize("D", [5, 13])
+@pytest.mark.parametrize("L", [33, 40])
+def test_window_filter_plain_matches_pallas_and_ref(D, L):
+    rng = np.random.default_rng(D * L)
+    docs = _docs(rng, D, 70, vocab=500, pad_frac=0.1)
+    bits = _bits(rng, 1 << 12, density=0.3)
+    want = np.asarray(window_filter_pallas(jnp.asarray(docs), jnp.asarray(bits), 1 << 12, 3, L,
+                                           interpret=True))
+    ref = np.asarray(r_ref.window_filter_ref(jnp.asarray(docs), jnp.asarray(bits), 1 << 12, 3,
+                                             L))
+    got = t_wf.window_filter_plain(torch.as_tensor(docs), torch.as_tensor(bits.view(np.int32)),
+                                   1 << 12, 3, L)
+    assert got.dtype == torch.bool and got.shape == (D, 70, L)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert 0 < got.numpy().mean() < 1  # neither all nor nothing survives
+
+
+# ------------------------------------------------------------ B5 minhash
+
+@pytest.mark.parametrize("bands,rows", [(4, 2), (2, 4)])
+def test_minhash_plain_matches_pallas_and_numpy(bands, rows):
+    rng = np.random.default_rng(bands * 10 + rows)
+    toks = _docs(rng, 300, 8, vocab=5000, pad_frac=0.2)
+    valid = toks != 0
+    valid[:7] = False  # rows with no valid token
+    want = np.asarray(minhash_pallas(jnp.asarray(toks), jnp.asarray(valid), bands, rows,
+                                     interpret=True))
+    host = _minhash_np(toks, valid, RLshParams(bands, rows))
+    got = t_mh.minhash_plain(torch.as_tensor(toks), torch.as_tensor(valid), bands, rows)
+    assert got.dtype == torch.int64 and got.shape == (300, bands)
+    np.testing.assert_array_equal(_as_u32(got), want)
+    np.testing.assert_array_equal(_as_u32(got), host)
+    np.testing.assert_array_equal(_as_u32(t_ops.minhash(torch.as_tensor(toks),
+                                                        torch.as_tensor(valid), bands, rows)),
+                                  want)
+    assert (want[:7] == want[0]).all()  # the empty-row constant
+
+
+def test_window_filter_and_minhash_checks():
+    docs = torch.ones((2, 8), dtype=torch.int32)
+    bits = torch.zeros((8,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_wf.window_filter_cuda(docs, bits, 256, 1, 40)
+    with pytest.raises(ValueError, match=r"\[D, T\]"):
+        t_wf.window_filter_plain(docs[0], bits, 256, 1, 40)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_mh.minhash_cuda(docs, docs != 0, 2, 4)
+    with pytest.raises(ValueError, match="valid"):
+        t_mh.minhash_plain(docs, docs[:, :4] != 0, 2, 4)
+    before = (t_wf.launches, t_mh.launches)
+    t_ops.window_filter(docs, bits, 256, 1, 40)
+    t_ops.minhash(docs, docs != 0, 2, 4)
+    assert (t_wf.launches, t_mh.launches) == before  # CPU tensors: plain forms
