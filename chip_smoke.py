@@ -30,9 +30,11 @@ operator's entry points at full size:
   the [N, K, K] duplicate mask over N = 1 M windows would need ~1 TB;
 * phase D: entities of 2 to 40 tokens (10,000 of them, seed 1), so
   windows are longer than the fused probe's 32-length bitmap holds:
-  ``execute`` and ``execute_sharded`` through the window_filter kernel,
-  on 32 documents of 512 tokens with an ``ssjoin:lsh`` plan banded
-  2 x 8 (see ``D_D`` below for why);
+  ``execute`` and ``execute_sharded`` through the window_filter kernel
+  and jaccard_verify's kernel for rows longer than 32 tokens (its own
+  row, ``jaccard_verify_long``, also checked at L = 100 on synthetic
+  rows), on 32 documents of 512 tokens with an ``ssjoin:lsh`` plan
+  banded 2 x 8 (see ``D_D`` below for why);
 * minhash: the ``ops.minhash`` entry point on the 1,048,576 (document,
   position, length) windows of phase B's documents, at 4 x 2 and 2 x 4
   bands, equal to the plain form and to ``window_signatures("lsh")``.
@@ -119,6 +121,29 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int):
+    """Device time per call of ``fn``: the CUDA kernels and memsets that
+    torch.profiler records over ``reps`` calls after one warm-up, summed
+    over ``reps``; also by name. Free of the host time between launches,
+    which a short kernel's event timing includes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0].split("<")[0].strip()
+            by_name[name] = by_name.get(name, 0.0) + ev.device_time_total / 1e3 / reps
+    return sum(by_name.values()), by_name
+
+
 def max_abs_diff(a, b) -> float:
     import torch
 
@@ -140,6 +165,7 @@ def counters():
     return {"fused_probe": (fused_probe, "launches"),
             "fused_probe_stream": (fused_probe, "stream_launches"),
             "jaccard_verify": (jaccard_verify, "launches"),
+            "jaccard_verify_long": (jaccard_verify, "long_launches"),
             "window_filter": (window_filter, "launches"),
             "minhash": (minhash, "launches")}
 
@@ -220,7 +246,8 @@ def check_fused_probe(report, docs, flt, NC, L, lsh, tag):
 
 
 def check_jaccard(report, inputs, tag):
-    """The verify kernel == its plain version within 1e-6.
+    """The verify kernel == its plain version: within 1e-6 for rows of up
+    to 32 tokens, bit for bit for longer rows (the long-row kernel).
 
     Both sum in index order with exact products and divide in IEEE
     single precision, so they should agree exactly; 1e-6 is the verify
@@ -230,19 +257,42 @@ def check_jaccard(report, inputs, tag):
 
     from repro_torch.kernels import jaccard_verify as jv
 
+    L = inputs[2].shape[2]
+    name, tol = ("jaccard_verify_long", 0.0) if L > jv.MAX_UNROLLED_L else ("jaccard_verify", 1e-6)
     for mode in jv.MODES:
         got = jv.jaccard_verify_cuda(*inputs, mode=mode)
         want = jv.jaccard_verify_plain(*inputs, mode=mode)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
-            fail(f"jaccard_verify {tag} {mode}: non-finite scores")
+            fail(f"{name} {tag} {mode}: non-finite scores")
         err = max_abs_diff(got, want)
-        if err > 1e-6:
-            fail(f"jaccard_verify {tag} {mode}: differs from the plain version by {err}")
-        report.worst_err("jaccard_verify", err)
+        if err > tol:
+            fail(f"{name} {tag} {mode}: differs from the plain version by {err}")
+        report.worst_err(name, err)
         del got, want
-    log(f"[check] jaccard_verify {tag}: N={inputs[2].shape[0]} K={inputs[2].shape[1]} "
-        f"L={inputs[2].shape[2]} within 1e-6 of the plain version")
+    log(f"[check] {name} {tag}: N={inputs[2].shape[0]} K={inputs[2].shape[1]} "
+        f"L={L} within {tol:g} of the plain version")
+
+
+def check_jaccard_long_synthetic(report, dev, N=8192, K=10, L=100):
+    """The long-row kernel at L = 100 on synthetic rows: windows of real
+    tokens then a PAD tail (longer than the 64 window tokens the kernel
+    keeps in registers), entity rows drawn half from their window."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(100)
+    win = rng.integers(1, 5000, size=(N, L)).astype(np.int32)
+    win[np.arange(L)[None, :] >= rng.integers(0, L + 1, size=(N, 1))] = 0
+    ent = rng.integers(1, 5000, size=(N, K, L)).astype(np.int32)
+    pick = rng.integers(0, L, size=(N, K, L))
+    from_win = np.take_along_axis(np.broadcast_to(win[:, None, :], (N, K, L)), pick, axis=2)
+    ent = np.where(rng.random((N, K, L)) < 0.5, from_win, ent)
+    ent[np.arange(L)[None, None, :] >= rng.integers(1, L + 1, size=(N, K, 1))] = 0
+    win_w = (rng.uniform(0.1, 2.0, (N, L)) * (win != 0)).astype(np.float32)
+    ent_w = (rng.uniform(0.1, 2.0, (N, K, L)) * (ent != 0)).astype(np.float32)
+    check_jaccard(report, [torch.as_tensor(a, device=dev) for a in (win, win_w, ent, ent_w)],
+                  "synthetic")
 
 
 def verify_inputs_of(prepared, docs, side_index):
@@ -321,6 +371,7 @@ def time_kernels(report, docs, flt, NC, L, verify_inputs):
 
 
 OWN_KERNELS = ("probe_kernel", "scan_kernel", "pad_kernel", "emit_kernel", "jaccard_kernel",
+               "jaccard_long_kernel", "stream_probe_kernel", "lane_fill_kernel",
                "window_filter_kernel", "minhash_kernel")
 
 
@@ -555,6 +606,22 @@ def phase_c(report, op, prepared, docs, corpus_docs, want_scores, NC, L):
                library_ms=None)
     log(f"[time] fused_probe_stream variant lanes R={R} T={Tt} L={L} G={G} bd={bd} W={NC}: "
         f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b:.4f} ms ({nbytes} B)")
+    kw = dict(max_len=L, bd=bd, candidates=NC, count_only=True)
+    ms_count = cuda_time_ms(lambda: fp.fused_probe_stream_cuda(sdocs, bits, row_offs, num_bits,
+                                                               num_hashes, **kw), 20)
+    plain_count = cuda_time_ms(lambda: fp.fused_probe_stream_plain(sdocs, bits, row_offs,
+                                                                   num_bits, num_hashes, **kw), 3)
+    nbytes = R * Tt * 4 + bits.numel() * 4 + G * 4 + G * 4
+    log(f"[time] fused_probe_stream count-only R={R} T={Tt} L={L} G={G} bd={bd}: kernel "
+        f"{ms_count:.4f} ms, plain {plain_count:.3f} ms, bytes bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B)")
+    for what, count_only in (("variant lanes", False), ("count-only", True)):
+        kw = dict(max_len=L, sig_mode="none" if count_only else "variant", bd=bd, candidates=NC,
+                  count_only=count_only)
+        total, parts = device_ms(lambda: fp.fused_probe_stream_cuda(
+            sdocs, bits, row_offs, num_bits, num_hashes, **kw), 20)
+        log(f"[time] fused_probe_stream {what}: device time {total:.4f} ms per call "
+            f"(torch.profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + ")")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_c_")
     try:
@@ -705,19 +772,27 @@ def phase_d(report, dev):
     log(f"[time] window_filter D={D_D} T={T} L={L}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
         f"bound {b:.4f} ms ({nbytes} B)")
     vin = check_verify_of(report, prepared, docs, "D")
+    check_jaccard_long_synthetic(report, dev)
     from repro_torch.kernels import jaccard_verify as jv
 
     N, Kv, Lv = vin[2].shape
-    ms = cuda_time_ms(lambda: jv.jaccard_verify_cuda(*vin, mode="extra"), 10)
+    ms = cuda_time_ms(lambda: jv.jaccard_verify_cuda(*vin, mode="extra"), 20)
     plain = cuda_time_ms(lambda: jv.jaccard_verify_plain(*vin, mode="extra"), 2)
     nbytes = N * Kv * Lv * 8 + N * Lv * 8 + N * Kv * 4
-    log(f"[time] jaccard_verify (rows of L={Lv} > 32: runtime-L kernel) N={N} K={Kv}: "
-        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bytes bound "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B)")
+    # the same count as phase A's row: L x L int32 compares per pair and
+    # ~3L + 2 float32 operations
+    int_ops, f32_ops = N * Kv * Lv * Lv, N * Kv * (3 * Lv + 2)
+    b = bound(report, "jaccard_verify_long", nbytes, int_ops, f32_ops)
+    report.set("jaccard_verify_long", route="cuda",
+               source="src/repro_torch/kernels/csrc/jaccard_verify.cu",
+               replaces="src/repro/kernels/jaccard_verify.py:83", ms=ms, plain_ms=plain,
+               library_ms=None)
+    log(f"[time] jaccard_verify_long (rows of L={Lv} > 32) N={N} K={Kv}: kernel {ms:.4f} ms, "
+        f"plain {plain:.3f} ms, bound {b:.4f} ms ({nbytes} B, {int_ops + f32_ops} ops)")
     del vin
 
     reset_counts()
-    names = ("window_filter", "jaccard_verify")
+    names = ("window_filter", "jaccard_verify", "jaccard_verify_long")
     t0 = time.perf_counter()
     m = op.execute(prepared, docs)
     torch.cuda.synchronize()
@@ -914,6 +989,7 @@ def main() -> int:
     # ---------------------------------------------------------------- D
     launches_d = phase_d(report, dev)
     report.set("window_filter", launches=launches_d["window_filter"])
+    report.set("jaccard_verify_long", launches=launches_d["jaccard_verify_long"])
 
     rows = [report.rows[n] for n in counters()]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

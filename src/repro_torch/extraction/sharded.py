@@ -153,18 +153,21 @@ def stream_probe_tiles(docs, max_len: int, flt: tuple | None, params: engine.Ext
     """Stream a [S, T] doc shard through the probe tile by tile.
 
     Returns ``(counts [G], cands [G, W], vkeys)`` candidate lanes over
-    the whole shard (``W = lane_width or NC``; ``vkeys`` [G, W, 2] when
-    ``sig_mode == "variant"``, else None), flat indices globalised by
-    ``row_offset`` rows. The launch mode follows ``resolve_streamed``;
-    both modes give the same lanes. ``stream_stats`` accumulates the
-    reference's counters ``streamed_launches``, ``tiles_streamed`` and
-    ``dma_waits`` (one per streamed chunk).
+    the whole shard (``W = lane_width or NC``; ``vkeys`` [G, W, 2] int32
+    bit patterns of the uint32 key pairs when ``sig_mode == "variant"``,
+    else None; ``fused_probe.widen_keys`` widens the selected ones), flat
+    indices globalised by ``row_offset`` rows. The launch mode follows
+    ``resolve_streamed``; both modes give the same lanes.
+    ``stream_stats`` accumulates the reference's counters
+    ``streamed_launches``, ``tiles_streamed`` and ``dma_waits`` (one per
+    streamed chunk).
     """
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.fused_probe import (
         SIG_MODE_NONE,
         SIG_MODE_VARIANT,
         compact_tile_height,
+        narrow_keys,
     )
 
     sig_mode = SIG_MODE_NONE if sig_mode is None else sig_mode
@@ -194,7 +197,7 @@ def stream_probe_tiles(docs, max_len: int, flt: tuple | None, params: engine.Ext
         out_counts.append(cnt)
         out_cands.append(torch.where(cd >= 0, cd + off, -1))
         if var:
-            out_keys.append(vk)
+            out_keys.append(narrow_keys(vk))
     return (torch.cat(out_counts), torch.cat(out_cands, dim=0),
             torch.cat(out_keys, dim=0) if var else None)
 
@@ -271,7 +274,7 @@ def stream_filter_compact(doc_tokens, max_len: int, flt: tuple | None,
     ``params.adaptive_lanes``. Falls back to the single-call path where
     the epilogue cannot run (L > 32 or ``kernel_compact=False``).
     """
-    from repro_torch.kernels.fused_probe import SIG_MODE_VARIANT
+    from repro_torch.kernels.fused_probe import SIG_MODE_VARIANT, widen_keys
 
     if max_len > 32 or not params.kernel_compact:
         return engine.fused_filter_compact(doc_tokens, max_len, flt, params)
@@ -286,7 +289,7 @@ def stream_filter_compact(doc_tokens, max_len: int, flt: tuple | None,
     sel, ok, n = select_from_tiles(counts, cands, NC, complete_tiles=lane_w is not None)
     out = engine.candidates_from_flat(doc_tokens, sel, ok, n, max_len, NC)
     if sig_mode == SIG_MODE_VARIANT:
-        out = engine.attach_variant_keys(out, gather_from_tiles(counts, vkeys, NC))
+        out = engine.attach_variant_keys(out, widen_keys(gather_from_tiles(counts, vkeys, NC)))
     return out
 
 
@@ -308,7 +311,7 @@ def shard_lane(docs, row_offset: int, max_len: int, flt: tuple | None,
     With ``params.adaptive_lanes`` the internal tile lanes are sized by a
     count-only pass unless ``lane_width`` is given.
     """
-    from repro_torch.kernels.fused_probe import SIG_MODE_VARIANT
+    from repro_torch.kernels.fused_probe import SIG_MODE_VARIANT, widen_keys
 
     if sig_mode is None:
         D, T = docs.shape
@@ -324,7 +327,7 @@ def shard_lane(docs, row_offset: int, max_len: int, flt: tuple | None,
     sel, ok, n = select_from_tiles(counts, cands, NC, complete_tiles=complete)
     keys = None
     if sig_mode == SIG_MODE_VARIANT:
-        keys = gather_from_tiles(counts, vkeys, NC)[None, :, :]
+        keys = widen_keys(gather_from_tiles(counts, vkeys, NC))[None, :, :]
     return torch.where(ok, sel, -1)[None, :], n[None].to(torch.int32), keys
 
 

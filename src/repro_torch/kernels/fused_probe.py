@@ -37,7 +37,9 @@ keys, with chunk ``g``'s flat indices based at ``row_offs[g]`` rows:
 
 ``kernels.ops`` picks between the forms by the device of the tensors.
 Hash-valued outputs (``packed``, ``sigs``, ``vkeys``) are int64 tensors
-holding uint32 values (see ``core.hashing``).
+holding uint32 values (see ``core.hashing``), except the streamed form's
+``vkeys``: an int32 tensor of the uint32 bit patterns, the function's own
+width (``widen_keys`` turns the lanes a caller selects into int64).
 """
 from __future__ import annotations
 
@@ -301,6 +303,16 @@ def fused_probe_plain(doc_tokens, bits, num_bits: int, num_hashes: int, max_len:
     )
 
 
+def narrow_keys(keys):
+    """uint32 values held in int64 -> an int32 tensor of the same bits."""
+    return torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32)
+
+
+def widen_keys(keys):
+    """int32 bit patterns -> int64 holding the uint32 values."""
+    return keys.to(torch.int64) & MASK
+
+
 def check_stream_args(doc_tokens, row_offs, max_len: int, sig_mode: str, bd: int,
                       candidates: int) -> int:
     """The streamed form's argument rules (the reference's); returns G."""
@@ -335,8 +347,9 @@ def fused_probe_stream_plain(doc_tokens, bits, row_offs, num_bits: int, num_hash
     ``doc_tokens`` [G*bd, T] pre-padded, ``row_offs`` [G] absolute doc-row
     offsets; ``counts`` [G] int32, ``cands`` [G, C] int32 ascending global
     flat indices ``row_offs[g]*T*L + ((r - g*bd)*T + t)*L + l`` (-1 pad),
-    ``vkeys`` [G, C, 2] (variant); ``count_only`` gives ``counts`` alone.
-    Rows are independent in the recurrence, so the chunks run as one batch.
+    ``vkeys`` [G, C, 2] int32 bit patterns of the uint32 key pairs (0 pad;
+    variant); ``count_only`` gives ``counts`` alone. Rows are independent
+    in the recurrence, so the chunks run as one batch.
     """
     G = check_stream_args(doc_tokens, row_offs, max_len, sig_mode, bd, candidates)
     R, T = doc_tokens.shape
@@ -357,9 +370,9 @@ def fused_probe_stream_plain(doc_tokens, bits, row_offs, num_bits: int, num_hash
         cands = torch.where(ok, base + flat, -1).to(torch.int32)
         if var:
             sel = flat.clamp(0, span * L - 1)
-            vkeys = torch.stack(
+            vkeys = narrow_keys(torch.stack(
                 [torch.where(ok, k.reshape(G, span * L).gather(1, sel), 0) for k in keys], -1
-            )
+            ))
     return counts.to(torch.int32), cands, vkeys
 
 
@@ -392,9 +405,9 @@ def _stream_lib():
     if not getattr(lib, "_typed", False):
         lib.fused_probe_stream_launch.argtypes = [
             _P, ctypes.c_int, ctypes.c_int, _P,  # docs, R, T, row_offs
-            _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # bits, num_bits, K, use
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, mode, bd, C
-            _P, _P, _P, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P,  # counts, cands, keys, state, stream
         ]
         lib.fused_probe_stream_launch.restype = ctypes.c_int
         lib.fused_probe_stream_segment.argtypes = []
@@ -479,8 +492,9 @@ def fused_probe_stream_cuda(doc_tokens, bits, row_offs, num_bits: int, num_hashe
                             candidates: int = 0, count_only: bool = False):
     """CUDA form of ``fused_probe_stream_plain``: same arguments, same outputs.
 
-    The packed survival bitmap and per-segment counts are scratch that
-    this wrapper allocates; only counts, lanes and keys are returned.
+    The kernel's look-back words (one per segment of SEG positions) are
+    scratch that this wrapper allocates; only counts, lanes and keys are
+    returned.
     """
     global stream_launches
     G = check_stream_args(doc_tokens, row_offs, max_len, sig_mode, bd, candidates)
@@ -495,20 +509,17 @@ def fused_probe_stream_cuda(doc_tokens, bits, row_offs, num_bits: int, num_hashe
     dev = doc_tokens.device
     lib = _stream_lib()
     nseg = -(-T // lib.fused_probe_stream_segment())
-    i64, i32 = torch.int64, torch.int32
-    packed = torch.empty((R, T), dtype=i64, device=dev)  # scratch
-    seg_counts = torch.empty((R * nseg,), dtype=i32, device=dev)
-    seg_offs = torch.empty((R * nseg,), dtype=i32, device=dev) if cand_cap else None
+    i32 = torch.int32
+    state = torch.empty((1 + R * nseg,), dtype=torch.int64, device=dev)  # scratch
     counts = torch.empty((G,), dtype=i32, device=dev)
     cands = torch.empty((G, cand_cap), dtype=i32, device=dev) if cand_cap else None
-    vkeys = torch.empty((G, cand_cap, 2), dtype=i64, device=dev) if var else None
+    vkeys = torch.empty((G, cand_cap, 2), dtype=i32, device=dev) if var else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_probe_stream_launch(
         doc_tokens.data_ptr(), R, T, row_offs.data_ptr(),
-        bits.data_ptr(), num_bits, bits.numel(), num_hashes, int(use_filter),
+        bits.data_ptr(), num_bits, num_hashes, int(use_filter),
         L, _SIG_MODE_CODE[SIG_MODE_VARIANT if var else SIG_MODE_NONE], bd, cand_cap,
-        packed.data_ptr(), counts.data_ptr(), _ptr(cands), _ptr(vkeys),
-        seg_counts.data_ptr(), _ptr(seg_offs), stream,
+        counts.data_ptr(), _ptr(cands), _ptr(vkeys), state.data_ptr(), stream,
     )
     stream_launches += 1
     if rc != 0:

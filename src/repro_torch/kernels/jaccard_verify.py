@@ -24,8 +24,13 @@ from repro_torch.kernels import _build
 
 MODES = ("extra", "missing")
 
-#: launches of the CUDA kernel since the last reset
+#: launches of the CUDA kernel since the last reset (every row length)
 launches = 0
+#: of those, launches of the kernel for rows longer than 32 tokens
+long_launches = 0
+
+#: longest row of the unrolled kernels; longer rows take the long-row kernel
+MAX_UNROLLED_L = 32
 
 
 def _check(win_tokens, win_w, ent_tokens, ent_w, mode):
@@ -79,7 +84,7 @@ def _lib():
 
 def jaccard_verify_cuda(win_tokens, win_w, ent_tokens, ent_w, mode: str = "extra"):
     """CUDA form of ``jaccard_verify_plain``: [N, K] f32."""
-    global launches
+    global launches, long_launches
     _check(win_tokens, win_w, ent_tokens, ent_w, mode)
     dev = win_tokens.device
     for name, t, dtype in (("win_tokens", win_tokens, torch.int32), ("win_w", win_w, torch.float32),
@@ -100,6 +105,8 @@ def jaccard_verify_cuda(win_tokens, win_w, ent_tokens, ent_w, mode: str = "extra
         out.data_ptr(), N, K, L, MODES.index(mode), torch.cuda.current_stream(dev).cuda_stream,
     )
     launches += 1
+    if L > MAX_UNROLLED_L:
+        long_launches += 1
     if rc != 0:
         raise RuntimeError(f"jaccard_verify kernel launch failed with CUDA error {rc}")
     return out

@@ -168,7 +168,8 @@ def fused_probe_stream(doc_tokens, flt: tuple | None, max_len: int, candidates: 
     chunk's absolute doc-row offset, which keeps flat indices
     bit-identical to the per-tile loop. Returns ``(counts [G], cands
     [G, W], vkeys)``: ``fused_probe_compact``'s lanes without the packed
-    bitmap or dense signatures (``sig_mode="lsh"`` raises).
+    bitmap or dense signatures (``sig_mode="lsh"`` raises), the variant
+    keys as int32 bit patterns (``fused_probe.widen_keys``).
     ``count_only=True`` is the adaptive sizing pass: ``counts`` alone.
     """
     if candidates <= 0:

@@ -85,6 +85,52 @@ def test_jaccard_verify_cuda_matches_plain(cuda_device, mode, N, K, L):
     assert torch.equal(got, want)
 
 
+def _long_verify_inputs(rng, N, K, L, device, edit):
+    """Verify inputs shaped as the window_filter path gives them: each
+    window real tokens then a PAD tail, entity rows with PAD inside."""
+    win = rng.integers(1, 60, size=(N, L)).astype(np.int32)
+    win[np.arange(L)[None, :] >= rng.integers(0, L + 1, size=(N, 1))] = 0
+    ent = rng.integers(0, 60, size=(N, K, L)).astype(np.int32)
+    ent[rng.random((N, K, L)) < 0.3] = 0
+    if edit == "pad_heavy":
+        win[rng.random((N, L)) < 0.8] = 0
+        ent[rng.random((N, K, L)) < 0.9] = 0
+    if edit == "duplicates":  # every row one token repeated
+        win[:] = np.where(win != 0, win[:, :1], 0)
+        ent[:] = np.where(ent != 0, 7, 0)
+        win[win == 0] = 7
+    win_w = (rng.uniform(0.1, 2.0, (N, L)) * (win != 0)).astype(np.float32)
+    ent_w = (rng.uniform(0.1, 2.0, (N, K, L)) * (ent != 0)).astype(np.float32)
+    if edit == "zero_weight_windows":
+        win_w[::3] = 0.0
+    out = [torch.as_tensor(a, device=device) for a in (win, win_w, ent, ent_w)]
+    if edit == "unaligned":  # 4 bytes past a 16-byte boundary: the 4-byte copy path
+        out = [torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape) for t in out]
+        assert all(t.data_ptr() % 16 == 4 and t.is_contiguous() for t in out)
+    return out
+
+
+# (N, K, edit): N*K not a multiple of the 128-pair run; K = 1; K larger
+# than a run; PAD-heavy and all-duplicate rows; windows of weight 0;
+# rows off 16-byte alignment
+LONG_CASES = [(257, 10, None), (300, 1, None), (3, 300, None), (129, 7, "pad_heavy"),
+              (64, 5, "duplicates"), (96, 3, "zero_weight_windows"), (50, 6, "unaligned")]
+
+
+@pytest.mark.parametrize("mode", ["extra", "missing"])
+@pytest.mark.parametrize("L", [33, 40, 64, 100])
+@pytest.mark.parametrize("N,K,edit", LONG_CASES)
+def test_jaccard_verify_long_rows_match_plain(cuda_device, mode, L, N, K, edit):
+    args = _long_verify_inputs(np.random.default_rng(N * K + L), N, K, L, cuda_device, edit)
+    before = (jv.launches, jv.long_launches)
+    got = jv.jaccard_verify_cuda(*args, mode=mode)
+    want = jv.jaccard_verify_plain(*args, mode=mode)
+    torch.cuda.synchronize()
+    assert (jv.launches, jv.long_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+    assert (want > 0).any()
+
+
 def test_ops_launch_the_kernels_on_cuda_tensors(cuda_device):
     rng = np.random.default_rng(0)
     docs = torch.as_tensor(_docs(rng, 4, 64), device=cuda_device)
@@ -133,6 +179,48 @@ def test_fused_probe_stream_cuda_matches_plain(cuda_device, sig_mode, candidates
             assert (g is None) == (w is None)
             if g is not None:
                 assert torch.equal(g, w)
+
+
+# (case, T, td, bd): one chunk; zero survivors; every chunk PAD; more
+# survivors than lanes; rows of several segments with chunks of many
+# segments and td % bd != 0
+STREAM_EDGE_CASES = [("one_chunk", 300, 12, 12), ("zero_survivors", 300, 12, 8),
+                     ("pad_only", 300, 12, 8), ("truncated", 300, 12, 8),
+                     ("long_rows", 700, 12, 5)]
+
+
+@pytest.mark.parametrize("sig_mode,count_only", [("none", True), ("none", False),
+                                                 ("variant", False)])
+@pytest.mark.parametrize("case,T,td,bd", STREAM_EDGE_CASES)
+def test_fused_probe_stream_cuda_edge_cases(cuda_device, sig_mode, count_only, case, T, td, bd):
+    rng = np.random.default_rng(7)
+    docs = torch.as_tensor(_docs(rng, 24 if case != "one_chunk" else 12, T),
+                           device=cuda_device)
+    bits = torch.as_tensor(_bits(rng, 1 << 12, 0.3).view(np.int32), device=cuda_device)
+    if case == "zero_survivors":
+        bits.zero_()
+    if case == "pad_only":
+        docs.zero_()
+    sdocs, offs = sharded._streamed_layout(docs, td, docs.shape[0] // td, bd)
+    if case == "one_chunk":
+        assert len(offs) == 1
+    row_offs = torch.as_tensor(offs + 24, device=cuda_device)
+    C = 40 if case == "truncated" else sdocs.shape[0] * T * 8
+    kw = dict(max_len=8, sig_mode=sig_mode, bd=bd, candidates=C, count_only=count_only)
+    got = fp.fused_probe_stream_cuda(sdocs, bits, row_offs, 1 << 12, 3, **kw)
+    want = fp.fused_probe_stream_plain(sdocs, bits, row_offs, 1 << 12, 3, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    counts = got[0]
+    if case in ("zero_survivors", "pad_only"):
+        assert not counts.any()
+    elif case == "truncated":
+        assert int(counts.max()) > C
+    else:
+        assert counts.all()
 
 
 @pytest.mark.parametrize("L", [33, 40, 8])

@@ -294,9 +294,20 @@ def test_fused_probe_stream_equals_per_tile_probe():
     for g in range(4):
         _, _, c, x, k = t_fp.fused_probe_plain(docs[4 * g:4 * g + 4], bits, 1 << 12, 3, 5,
                                                sig_mode="variant", bd=4, candidates=32)
-        assert torch.equal(counts[g:g + 1], c) and torch.equal(vkeys[g:g + 1], k)
+        assert torch.equal(counts[g:g + 1], c)
+        assert vkeys.dtype == torch.int32 and torch.equal(t_fp.widen_keys(vkeys[g:g + 1]), k)
         base = int(row_offs[g]) * 40 * 5
         assert torch.equal(cands[g:g + 1], torch.where(x >= 0, x + base, -1))
+
+
+@pytest.mark.parametrize("values", [[0, 1, 2**31 - 1], [2**31, 2**32 - 1, 0xDEADBEEF]])
+def test_stream_key_width_round_trip(values):
+    """The streamed form's int32 keys are the uint32 keys' own bits."""
+    k = torch.tensor(values, dtype=torch.int64)
+    narrow = t_fp.narrow_keys(k)
+    assert narrow.dtype == torch.int32
+    np.testing.assert_array_equal(narrow.numpy().view(np.uint32), np.array(values, np.uint32))
+    assert torch.equal(t_fp.widen_keys(narrow), k)
 
 
 def test_fused_probe_stream_argument_checks():

@@ -134,6 +134,29 @@ def test_stream_probe_tiles_edge_cases(case):
         assert not counts.any() and (got[1].numpy() == -1).all()
 
 
+@pytest.mark.parametrize("lane_width", [None, 16])
+def test_stream_probe_tiles_variant_keys(lane_width):
+    """Streamed and per-tile lanes carry the reference's variant keys,
+    as int32 bit patterns in both launch modes."""
+    rng = np.random.default_rng(27)
+    docs = _docs(rng, 14, 48)
+    rflt, tflt = _filter(rng)
+    want = None
+    for streamed in (True, False):
+        rp, tp = _params(scheme="variant", max_candidates=256, streamed=streamed)
+        ref = r_sh.stream_probe_tiles(jnp.asarray(docs), 5, rflt, rp, tile_docs=4,
+                                      lane_width=lane_width, sig_mode="variant")
+        got = t_sh.stream_probe_tiles(torch.as_tensor(docs), 5, tflt, tp, tile_docs=4,
+                                      lane_width=lane_width, sig_mode="variant")
+        assert got[2].dtype == torch.int32
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy().astype(np.asarray(r).dtype), np.asarray(r))
+        if want is None:
+            want = got
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_stream_tile_counts_match_reference():
     rng = np.random.default_rng(25)
     docs = _docs(rng, 13, 96)
