@@ -27,7 +27,8 @@ operator's entry points at full size:
   adaptive lanes. The head bands its MinHash as 2 bands x 4 rows: with
   the default 4 x 2 the head's common tokens put 268 entities in one
   signature bucket, so each window would verify K = 1,072 candidates and
-  the [N, K, K] duplicate mask over N = 1 M windows would need ~1 TB;
+  the [N, K, K] duplicate mask over N = 1 M windows would need ~1 TB.
+  fused_probe is also timed at the four calls this phase makes;
 * phase D: entities of 2 to 40 tokens (10,000 of them, seed 1), so
   windows are longer than the fused probe's 32-length bitmap holds:
   ``execute`` and ``execute_sharded`` through the window_filter kernel
@@ -106,8 +107,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs after one warm-up."""
+def cuda_time_ms(fn, reps: int, host: list | None = None) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs after one warm-up;
+    ``host``, where given, receives the host time of each run in ms."""
     import torch
 
     fn()
@@ -115,7 +117,10 @@ def cuda_time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
+        t = time.perf_counter()
         fn()
+        if host is not None:
+            host.append((time.perf_counter() - t) * 1e3)
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -222,8 +227,12 @@ def check_fused_probe(report, docs, flt, NC, L, lsh, tag):
         ("variant", 0, False, fp.DEFAULT_BD, flt),
         ("variant", NC, False, bd_nc, flt),
         ("variant", 4096, False, fp.DEFAULT_BD, flt),  # many tiles, overflowing lanes
+        ("variant", 24 * Tt * L, False, 24, flt),  # a short last tile (D % 24 != 0)
+        ("variant", 2 * 8 * Tt * L, False, 8, flt),  # lanes past every tile's capacity
         (None, None, None, None, None),  # variant lanes at the adaptive width
     ]
+    if Dd % 24 == 0:
+        fail(f"fused_probe {tag}: D={Dd} leaves no short last tile at bd=24")
     for mode, C, count_only, bd, f in cases:
         if mode is None:
             counts = fp.fused_probe_cuda(docs, bits, num_bits, num_hashes, L, candidates=NC,
@@ -325,10 +334,57 @@ def check_verify_of(report, prepared, docs, tag):
     return largest
 
 
-def time_kernels(report, docs, flt, NC, L, verify_inputs):
-    """Kernel, plain and bound times at the main path's shapes."""
+def time_probe(tag, call, docs, bits):
+    """One fused_probe call at its shapes: event time per call over 20
+    back-to-back calls (returned, the kernels line's ms), the host time
+    of each of those calls, the device time per call by kernel
+    (torch.profiler, returned) and the bytes bound at the function's own
+    widths (bytes returned) and at the int64 slots the contract writes."""
     import torch
 
+    host: list[float] = []
+    ms = cuda_time_ms(call, 20, host)
+    dev, parts = device_ms(call, 20)
+    out = call()
+    torch.cuda.synchronize()
+    Dd, Tt = docs.shape
+    # docs and Bloom words read once; the outputs written once, at the
+    # function's widths (packed, sigs and keys uint32, counts and lanes
+    # int32) and at the port's (packed, sigs and keys in int64 slots)
+    read = Dd * Tt * 4 + bits.numel() * 4
+    own = read + sum(t.numel() * 4 for t in out if t is not None)
+    slots = read + sum(t.numel() * t.element_size() for t in out if t is not None)
+    log(f"[time] fused_probe {tag}: event {ms:.4f} ms per call; device {dev:.4f} ms per call "
+        "(torch.profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"); host to enqueue one: median {statistics.median(host):.4f} ms, max "
+        f"{max(host):.4f} ms; bytes bound {own / HBM_BYTES_PER_S * 1e3:.4f} ms ({own} B) at the "
+        f"function's widths, {slots / HBM_BYTES_PER_S * 1e3:.4f} ms ({slots} B) at the int64 "
+        "slots")
+    return ms, dev, own
+
+
+def time_probe_b(docs, prepared, NC, L, lsh):
+    """fused_probe at phase B's four calls: count-only, then lanes at the
+    adaptive width, for the lsh head (dense signatures) and the variant
+    tail."""
+    from repro_torch.kernels import fused_probe as fp
+
+    Dd, Tt = docs.shape
+    bd = fp.compact_tile_height(Dd, Tt, NC)
+    for tag, side, mode in (("B head", 0, "lsh"), ("B tail", 1, "variant")):
+        bits, num_bits, num_hashes = prepared.sides[side].flt
+        kw = dict(max_len=L, bands=lsh.bands, rows=lsh.rows, bd=bd)
+        count = lambda: fp.fused_probe_cuda(docs, bits, num_bits, num_hashes, candidates=NC,
+                                            count_only=True, **kw)
+        time_probe(f"{tag} count-only D={Dd} bd={bd}", count, docs, bits)
+        width = fp.round_lane_width(int(count()[2].max()), NC)
+        time_probe(f"{tag} {mode} lanes C={width}",
+                   lambda: fp.fused_probe_cuda(docs, bits, num_bits, num_hashes, sig_mode=mode,
+                                               candidates=width, **kw), docs, bits)
+
+
+def time_kernels(report, docs, flt, NC, L, verify_inputs):
+    """Kernel, plain and bound times at the main path's shapes."""
     from repro_torch.kernels import fused_probe as fp
     from repro_torch.kernels import jaccard_verify as jv
 
@@ -337,20 +393,17 @@ def time_kernels(report, docs, flt, NC, L, verify_inputs):
     bd = fp.compact_tile_height(Dd, Tt, NC)
     G = -(-Dd // bd)
     kw = dict(max_len=L, sig_mode="variant", use_filter=True, bd=bd, candidates=NC)
-    ms = cuda_time_ms(lambda: fp.fused_probe_cuda(docs, bits, num_bits, num_hashes, **kw), 20)
+    tag = f"variant lanes D={Dd} T={Tt} L={L} NC={NC} G={G} bd={bd}"
+    ms, dev, nbytes = time_probe(tag, lambda: fp.fused_probe_cuda(docs, bits, num_bits,
+                                                                 num_hashes, **kw), docs, bits)
     plain = cuda_time_ms(lambda: fp.fused_probe_plain(docs, bits, num_bits, num_hashes, **kw), 3)
-    # bytes: docs and Bloom words read once; the function's outputs at
-    # their own widths written once: packed [D, T] u32, counts [G] i32,
-    # lanes [G, C] i32, variant keys [G, C, 2] u32. (The port carries
-    # packed and keys in int64, twice their bytes: a gap of its own.)
-    nbytes = Dd * Tt * 4 + bits.numel() * 4 + Dd * Tt * 4 + G * 4 + G * NC * 4 + G * NC * 8
     ops = probe_ops(Dd * Tt, L)
     b = bound(report, "fused_probe", nbytes, ops)
     report.set("fused_probe", route="cuda", source="src/repro_torch/kernels/csrc/fused_probe.cu",
-               replaces="src/repro/kernels/fused_probe.py:561", ms=ms, plain_ms=plain,
-               library_ms=None)
-    log(f"[time] fused_probe variant lanes D={Dd} T={Tt} L={L} NC={NC} G={G} bd={bd}: "
-        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b:.4f} ms ({nbytes} B, {ops} ops)")
+               replaces="src/repro/kernels/fused_probe.py:561", ms=ms, device_ms=dev,
+               plain_ms=plain, library_ms=None)
+    log(f"[time] fused_probe {tag}: kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b:.4f} ms "
+        f"({nbytes} B, {ops} ops)")
 
     N, K, Lv = verify_inputs[2].shape
     ms = cuda_time_ms(lambda: jv.jaccard_verify_cuda(*verify_inputs, mode="extra"), 20)
@@ -370,7 +423,7 @@ def time_kernels(report, docs, flt, NC, L, verify_inputs):
         "no single PyTorch call computes either kernel's function (library_ms null)")
 
 
-OWN_KERNELS = ("probe_kernel", "scan_kernel", "pad_kernel", "emit_kernel", "jaccard_kernel",
+OWN_KERNELS = ("fused_probe_kernel", "jaccard_kernel",
                "jaccard_long_kernel", "stream_probe_kernel", "lane_fill_kernel",
                "window_filter_kernel", "minhash_kernel")
 
@@ -974,6 +1027,7 @@ def main() -> int:
         "index:variant tail)")
     docs_b = docs[:D_B].contiguous()
     check_fused_probe(report, docs_b, prepared_b.sides[0].flt, NC_B, L, cfg_b.lsh, "B head")
+    time_probe_b(docs_b, prepared_b, NC_B, L, cfg_b.lsh)
     check_verify_of(report, prepared_b, docs_b, "B")
     run_phase("B", op_b, op_b_plain, prepared_b, docs_b, corpus, corpus.doc_tokens[:D_B],
               lambda e: GAMMA if e < SPLIT_B else 0.0, (0, NUM_ENTITIES),
@@ -994,7 +1048,9 @@ def main() -> int:
     rows = [report.rows[n] for n in counters()]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    extra = ("device_ms",)  # where measured
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

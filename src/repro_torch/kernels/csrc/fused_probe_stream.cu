@@ -31,12 +31,13 @@
 //    L-step recurrence per position in registers, and sums its survivors
 //    with a block scan. A decoupled look-back over the earlier segments
 //    of the same chunk (each publishes its total, then its inclusive
-//    prefix, in one 64-bit word; one warp reads 32 of them at a time)
-//    gives the segment's first rank in its chunk; the ticket order makes
-//    every segment it waits on already running. The survivors with rank
-//    < C are written straight away, with their variant keys recomputed
-//    from shared memory: the survival bitmap never leaves the block. The
-//    chunk's last segment writes the chunk's count.
+//    prefix, in one 64-bit word; the block reads SEG of them a round,
+//    fused_probe.cuh) gives the segment's first rank in its chunk; the
+//    ticket order makes every segment it waits on already running. The
+//    survivors with rank < C are written straight away, with their
+//    variant keys recomputed from shared memory: the survival bitmap
+//    never leaves the block. The chunk's last segment writes the chunk's
+//    count.
 //  * stream_probe_kernel, fill blocks (the grid's last blocks): a chunk
 //    has at most cap = bd*T*L survivors, so its lanes and keys from
 //    min(cap, C) to C are padding whatever the counts: they get -1 and 0
@@ -49,9 +50,6 @@
 
 namespace {
 
-// look-back word of a segment: a flag in the high 32 bits, a count in
-// the low 32 bits
-constexpr unsigned long long LB_TOTAL = 1ull << 32, LB_PREFIX = 2ull << 32;
 constexpr int FILL_THREADS = 256;
 
 struct StreamArgs {
@@ -70,55 +68,6 @@ struct StreamArgs {
   unsigned long long* state;
 };
 
-// Run by the 32 lanes of one warp. Publishes segment s's total, sums the
-// totals of the segments before it in its chunk (j is s's index within
-// the chunk), 32 at a time, back to the nearest inclusive prefix,
-// publishes s's own inclusive prefix and returns its exclusive one.
-__device__ int look_back(unsigned long long* words, long long s, long long j, int total) {
-  const int lane = threadIdx.x & 31;
-  int excl = 0;
-  if (j > 0) {
-    if (lane == 0) atomicExch(words + s, LB_TOTAL | (unsigned)total);
-    const long long first = s - j;  // the chunk's first segment publishes a prefix at once
-    for (long long hi = s - 1;; hi -= 32) {
-      const long long q = hi - lane;
-      unsigned long long v = 0;
-      if (q >= first) {
-        do {
-          v = *(volatile unsigned long long*)(words + q);
-        } while ((v >> 32) == 0);
-      }
-      const unsigned stops = __ballot_sync(0xffffffffu, q < first || (v & LB_PREFIX));
-      const int stop = stops ? __ffs(stops) - 1 : 32;  // the nearest prefix
-      int x = lane <= stop ? (int)(unsigned)v : 0;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-      excl += x;
-      if (stops) break;
-    }
-  }
-  if (lane == 0) atomicExch(words + s, LB_PREFIX | (unsigned)(excl + total));
-  return excl;
-}
-
-// v into row[from, to) by thread t of n: 16-byte streaming stores over
-// the aligned interior, scalar stores at both ends.
-__device__ __forceinline__ void fill_span(int* row, long long from, long long to, int v,
-                                          long long t, long long n) {
-  if (from >= to) return;
-  int* p = row + from;
-  const long long len = to - from;
-  long long head = (long long)((16u - ((unsigned)(uintptr_t)p & 15u)) & 15u) >> 2;
-  if (head > len) head = len;
-  const long long nvec = (len - head) >> 2;
-  const long long tail0 = head + (nvec << 2);
-  if (t < head) p[t] = v;
-  if (t < len - tail0) p[tail0 + t] = v;
-  int4* q = reinterpret_cast<int4*>(p + head);
-  const int4 v4 = make_int4(v, v, v, v);
-  for (long long k = t; k < nvec; k += n) __stcs(q + k, v4);
-}
-
 // Lanes -1 and keys 0 in [from, to) of chunk g's rows.
 __device__ __forceinline__ void fill_lanes(const StreamArgs& a, int g, long long from,
                                            long long to, long long t, long long n) {
@@ -132,7 +81,6 @@ __global__ void __launch_bounds__(SEG) stream_probe_kernel(StreamArgs a) {
   extern __shared__ uint32_t smem[];
   __shared__ int warp_tot[SEG / 32];
   __shared__ long long s_seg;
-  __shared__ int s_off;
   if ((int)blockIdx.x >= a.probe_blocks) {  // a fill block
     const long long cap = (long long)a.bd * a.T * a.L;
     const long long t = (long long)(blockIdx.x - a.probe_blocks) * SEG + threadIdx.x;
@@ -191,16 +139,11 @@ __global__ void __launch_bounds__(SEG) stream_probe_kernel(StreamArgs a) {
     const int c = __popc(pack);
     int total;
     const int incl = block_inclusive_scan<SEG / 32>(c, warp_tot, &total);
-    if (tid < 32) {
-      const long long j = s - (long long)g * chunk_segs;
-      const int excl = look_back(a.state + 1, s, j, total);
-      if (tid == 0) {
-        if (j == chunk_segs - 1) a.counts[g] = excl + total;
-        s_off = excl;
-      }
-    }
-    __syncthreads();
-    int r = s_off + incl - c;  // rank of the thread's first survivor in its chunk
+    const long long j = s - (long long)g * chunk_segs;
+    if (tid == 0) publish_total(a.state + 1, s, j, total);
+    const int off = look_back<SEG>(a.state + 1, s, j, total, warp_tot);
+    if (tid == 0 && j == chunk_segs - 1) a.counts[g] = off + total;
+    int r = off + incl - c;  // rank of the thread's first survivor in its chunk
     if (EMIT && pack != 0u && r < a.C) {
       const long long lane0 = (long long)g * a.C;
       // global flat index of (row, t, l = 0), in 64 bits before the

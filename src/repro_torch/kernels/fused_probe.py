@@ -391,10 +391,10 @@ def _lib():
             _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # L, mode, bands, rows
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bd, C, count, dense
-            _P, _P, _P, _P, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P, _P, _P,  # packed, sigs, counts, cands, vkeys, state, stream
         ]
         lib.fused_probe_launch.restype = ctypes.c_int
-        lib.fused_probe_segment.argtypes = []
+        lib.fused_probe_segment.argtypes = [ctypes.c_int]
         lib.fused_probe_segment.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -441,7 +441,12 @@ def fused_probe_cuda(doc_tokens, bits, num_bits: int, num_hashes: int, max_len: 
                      sig_mode: str = SIG_MODE_NONE, bands: int = 4, rows: int = 2,
                      use_filter: bool = True, bd: int = DEFAULT_BD, candidates: int = 0,
                      count_only: bool = False):
-    """CUDA form of ``fused_probe_plain``: same arguments, same outputs."""
+    """CUDA form of ``fused_probe_plain``: same arguments, same outputs.
+
+    One kernel launch per call. Its scratch, which this wrapper allocates,
+    is a ticket plus one look-back word per segment of positions when lanes
+    are emitted, or one count word per tile in ``count_only``.
+    """
     global launches
     check_args(doc_tokens, max_len, sig_mode, candidates, count_only)
     check_cuda_inputs("fused_probe_cuda", doc_tokens, bits, use_filter, num_bits)
@@ -462,15 +467,15 @@ def fused_probe_cuda(doc_tokens, bits, num_bits: int, num_hashes: int, max_len: 
     dense = lsh or (var and not cand_cap)
     dev = doc_tokens.device
     lib = _lib()
-    nseg = -(-T // lib.fused_probe_segment())
+    nseg = -(-T // lib.fused_probe_segment(L))
     i64, i32 = torch.int64, torch.int32
+    scratch = 1 + (D * nseg if cand_cap else G if count_tiles else 0)
+    state = torch.empty((scratch,), dtype=i64, device=dev)
     packed = torch.empty((D, T), dtype=i64, device=dev)
     sigs = torch.empty((D, T, L, bands if lsh else 2), dtype=i64, device=dev) if dense else None
     counts = torch.empty((G,), dtype=i32, device=dev) if count_tiles else None
     cands = torch.empty((G, cand_cap), dtype=i32, device=dev) if cand_cap else None
     vkeys = torch.empty((G, cand_cap, 2), dtype=i64, device=dev) if cand_cap and var else None
-    seg_counts = torch.empty((D * nseg,), dtype=i32, device=dev) if count_tiles else None
-    seg_offs = torch.empty((D * nseg,), dtype=i32, device=dev) if cand_cap else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_probe_launch(
         doc_tokens.data_ptr(), D, T,
@@ -478,7 +483,7 @@ def fused_probe_cuda(doc_tokens, bits, num_bits: int, num_hashes: int, max_len: 
         L, _SIG_MODE_CODE[sig_mode], bands, rows,
         bd, cand_cap, int(count_tiles), int(dense),
         packed.data_ptr(), _ptr(sigs), _ptr(counts), _ptr(cands), _ptr(vkeys),
-        _ptr(seg_counts), _ptr(seg_offs), stream,
+        state.data_ptr(), stream,
     )
     launches += 1
     if rc != 0:

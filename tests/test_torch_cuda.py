@@ -67,6 +67,61 @@ def test_fused_probe_cuda_matches_plain(cuda_device, sig_mode, candidates, count
                 assert torch.equal(g, w)
 
 
+# (case, D, T, L, bd, bands, rows): one tile of thousands of segments;
+# D % bd != 0; L = 1; L = 32 with T not a multiple of the segment;
+# bands*rows = 32 (dense signatures in rounds of lengths, and an odd
+# value count per window that takes 8-byte stores)
+PROBE_SHAPES = [("one_tile", 512, 512, 8, 512, 4, 2), ("short_last_tile", 37, 300, 8, 8, 4, 2),
+                ("L1", 16, 300, 1, 4, 4, 2), ("L32", 13, 700, 32, 4, 4, 2),
+                ("bands32x1", 9, 300, 8, 4, 32, 1), ("bands4x8", 9, 300, 8, 4, 4, 8),
+                ("bands1x32", 9, 300, 7, 4, 1, 32)]
+# lane width against the tiles' counts and capacity cap = bd*T*L
+PROBE_WIDTHS = ["cap", "zero_survivors", "below_count", "between", "above_cap"]
+
+
+def _probe_both(docs, bits, num_bits, **kw):
+    """Two CUDA calls in a row (the scratch is reset, the look-back does not
+    race) and the plain form; all three must agree bit for bit."""
+    before = fp.launches
+    first = fp.fused_probe_cuda(docs, bits, num_bits, 3, **kw)
+    second = fp.fused_probe_cuda(docs, bits, num_bits, 3, **kw)
+    want = fp.fused_probe_plain(docs, bits, num_bits, 3, **kw)
+    torch.cuda.synchronize()
+    assert fp.launches == before + 2
+    for a, b, w in zip(first, second, want):
+        assert (a is None) == (w is None) and (b is None) == (w is None)
+        if w is not None:
+            assert a.dtype == w.dtype and a.shape == w.shape
+            assert torch.equal(a, w) and torch.equal(b, w)
+    return want
+
+
+@pytest.mark.parametrize("width", PROBE_WIDTHS)
+@pytest.mark.parametrize("case,D,T,L,bd,bands,rows", PROBE_SHAPES)
+def test_fused_probe_cuda_edge_cases(cuda_device, case, D, T, L, bd, bands, rows, width):
+    rng = np.random.default_rng(D + T + L)
+    docs = torch.as_tensor(_docs(rng, D, T), device=cuda_device)
+    bits = torch.as_tensor(_bits(rng, 1 << 12, 0.3).view(np.int32), device=cuda_device)
+    if width == "zero_survivors":
+        bits.zero_()
+    cap = min(bd, D) * T * L
+    counts = fp.fused_probe_plain(docs, bits, 1 << 12, 3, L, bd=bd, candidates=cap,
+                                  count_only=True)[2]
+    C = {"cap": cap, "zero_survivors": cap, "below_count": max(1, int(counts.min()) // 2),
+         "between": int(counts.max()) + 1, "above_cap": 2 * cap}[width]
+    if width == "zero_survivors":
+        assert not counts.any()
+    elif width == "below_count":
+        assert int(counts.min()) > C
+    elif width == "between":
+        assert int(counts.max()) < C < cap
+    for mode, cands, count_only in (("none", C, True), ("none", C, False), ("lsh", C, False),
+                                    ("variant", C, False), ("variant", 0, False),
+                                    ("lsh", 0, False), ("none", 0, False)):
+        _probe_both(docs, bits, 1 << 12, max_len=L, sig_mode=mode, bands=bands, rows=rows,
+                    bd=bd, candidates=cands, count_only=count_only)
+
+
 def _verify_inputs(rng, N, K, L, device):
     win = rng.integers(0, 60, size=(N, L)).astype(np.int32)
     ent = rng.integers(0, 60, size=(N, K, L)).astype(np.int32)
