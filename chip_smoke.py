@@ -35,7 +35,10 @@ operator's entry points at full size:
   and jaccard_verify's kernel for rows longer than 32 tokens (its own
   row, ``jaccard_verify_long``, also checked at L = 100 on synthetic
   rows), on 32 documents of 512 tokens with an ``ssjoin:lsh`` plan
-  banded 2 x 8 (see ``D_D`` below for why);
+  banded 2 x 8 (see ``D_D`` below for why). The window_filter kernel is
+  also checked and timed on phase A's 1,024 documents against this
+  phase's filter (keys ``*_large`` of its row), and the minhash kernel on
+  this phase's 655,360 windows at 2 x 8 (keys ``*_l40``);
 * minhash: the ``ops.minhash`` entry point on the 1,048,576 (document,
   position, length) windows of phase B's documents, at 4 x 2 and 2 x 4
   bands, equal to the plain form and to ``window_signatures("lsh")``.
@@ -91,9 +94,13 @@ DEVICE = "cuda"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores (data sheet)
-# The data sheet gives no int32 rate: 132 SMs x 64 INT32 lanes per SM at
-# the 1.98 GHz boost clock of the SXM part.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# The data sheet gives no int32 rate. An SM dispatches at most four 32-lane
+# instructions a clock; integer multiply-adds (IMAD, and adds the compiler
+# turns into them) go to the FMA pipe and logic, shift and min to the ALU
+# pipe, so a mix of both reaches that dispatch rate: 132 SMs x 128 lanes at
+# the 1.98 GHz boost clock of the SXM part. (64 lanes, the ALU pipe alone,
+# is no peak: minhash's hash loop runs above it.)
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 
 # A wrong kernel is the failure this script exists to catch: every check
 # raises, and the result lines print only after all of them passed.
@@ -763,9 +770,10 @@ def phase_c(report, op, prepared, docs, corpus_docs, want_scores, NC, L):
     return straight
 
 
-def phase_d(report, dev):
+def phase_d(report, dev, docs_a):
     """Entities of up to 40 tokens: execute and execute_sharded through
-    the window_filter kernel, equal to the plain path."""
+    the window_filter kernel, equal to the plain path; window_filter also
+    on ``docs_a``, and the minhash kernel on this phase's windows."""
     import torch
 
     from repro_torch.core.cost_model import SideCost
@@ -803,27 +811,42 @@ def phase_d(report, dev):
     docs = torch.as_tensor(corpus.doc_tokens, device=dev)
     bits, num_bits, num_hashes = side.flt
 
-    got = wf.window_filter_cuda(docs, bits, num_bits, num_hashes, L)
-    want = wf.window_filter_plain(docs, bits, num_bits, num_hashes, L)
-    torch.cuda.synchronize()
-    err = max_abs_diff(got, want)
-    if err != 0.0:
-        fail(f"window_filter D={D_D} T={T} L={L}: differs from the plain version ({err})")
-    report.worst_err("window_filter", err)
-    del got, want
-    log(f"[check] window_filter D={D_D} T={T} L={L}: bit-identical to the plain version")
-    ms = cuda_time_ms(lambda: wf.window_filter_cuda(docs, bits, num_bits, num_hashes, L), 50)
-    plain = cuda_time_ms(lambda: wf.window_filter_plain(docs, bits, num_bits, num_hashes, L), 5)
-    pos = D_D * T
-    # docs and Bloom words read once, the [D, T, L] bool mask written once;
-    # per token 3 hashes (~10 ops) and 3 probes, per (token, length) ~2 ops
-    nbytes = pos * 4 + bits.numel() * 4 + pos * L
-    b = bound(report, "window_filter", nbytes, pos * (3 * 10 + 3 * 4) + pos * L * 2)
-    report.set("window_filter", route="cuda", source="src/repro_torch/kernels/csrc/window_filter.cu",
-               replaces="src/repro/kernels/window_filter.py:85", ms=ms, plain_ms=plain,
-               library_ms=None)
-    log(f"[time] window_filter D={D_D} T={T} L={L}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-        f"bound {b:.4f} ms ({nbytes} B)")
+    # the engine's batch (D_D documents), then phase A's 1,024 documents
+    # against the same filter: the size where the bytes dominate
+    for tag, dd in (("", docs), ("_large", docs_a)):
+        Dd = dd.shape[0]
+        got = wf.window_filter_cuda(dd, bits, num_bits, num_hashes, L)
+        want = wf.window_filter_plain(dd, bits, num_bits, num_hashes, L)
+        torch.cuda.synchronize()
+        err = max_abs_diff(got, want)
+        if err != 0.0:
+            fail(f"window_filter D={Dd} T={T} L={L}: differs from the plain version ({err})")
+        report.worst_err("window_filter", err)
+        del got, want
+        log(f"[check] window_filter D={Dd} T={T} L={L}: bit-identical to the plain version")
+        call = lambda: wf.window_filter_cuda(dd, bits, num_bits, num_hashes, L)  # noqa: E731
+        host: list = []
+        ms = cuda_time_ms(call, 50, host)
+        dev_ms, _ = device_ms(call, 20)
+        plain = cuda_time_ms(lambda: wf.window_filter_plain(dd, bits, num_bits, num_hashes, L), 5)
+        pos = Dd * T
+        # docs and Bloom words read once, the [D, T, L] bool mask written once;
+        # per token 3 hashes (~10 ops) and 3 probes, per (token, length) ~2 ops
+        nbytes = pos * 4 + bits.numel() * 4 + pos * L
+        int_ops = pos * (3 * 10 + 3 * 4) + pos * L * 2
+        if tag:
+            b = max(nbytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
+            report.set("window_filter", ms_large=ms, device_ms_large=dev_ms,
+                       plain_ms_large=plain, bound_large_ms=b)
+        else:
+            b = bound(report, "window_filter", nbytes, int_ops)
+            report.set("window_filter", route="cuda",
+                       source="src/repro_torch/kernels/csrc/window_filter.cu",
+                       replaces="src/repro/kernels/window_filter.py:85", ms=ms, device_ms=dev_ms,
+                       plain_ms=plain, library_ms=None)
+        log(f"[time] window_filter D={Dd} T={T} L={L}: kernel {ms:.4f} ms (device {dev_ms:.4f}, "
+            f"host median {statistics.median(host):.4f} a call), plain {plain:.3f} ms, "
+            f"bound {b:.4f} ms ({nbytes} B)")
     vin = check_verify_of(report, prepared, docs, "D")
     check_jaccard_long_synthetic(report, dev)
     from repro_torch.kernels import jaccard_verify as jv
@@ -871,7 +894,69 @@ def phase_d(report, dev):
     compare_matches(m, m_plain, lambda e: GAMMA, "D")
     if int(m.count) == 0:
         fail("D: no matches")
+    check_minhash(report, *windows_of(docs, L), LSH_D, "_l40")
     return launches
+
+
+def windows_of(docs, L):
+    """Every (document, position, length) window of ``docs``: [N, L]
+    tokens (PAD past each window's length) and their validity."""
+    import torch
+
+    from repro_torch.core.dictionary import PAD
+    from repro_torch.extraction import engine
+
+    N = docs.numel() * L
+    flat = torch.arange(N, device=docs.device)
+    ok = torch.ones(N, dtype=torch.bool, device=docs.device)
+    win = engine.candidates_from_flat(docs, flat, ok, torch.tensor(N), L, N)["win_tokens"]
+    return win, win != PAD
+
+
+def check_minhash(report, win, valid, br, tag, got=None):
+    """The minhash kernel's output ``got`` (computed here if None) on
+    windows ``win`` at ``br`` bands x rows: equal to the plain form and to
+    window_signatures('lsh'); the kernel timed beside its plain form and
+    bound. ``tag`` suffixes the keys of the minhash row ("" for phase
+    minhash's own shape)."""
+    from repro_torch.core.signatures import LshParams, window_signatures
+    from repro_torch.kernels import minhash as mh
+
+    N, L = win.shape
+    B, R = br
+    if got is None:
+        got = mh.minhash_cuda(win, valid, B, R)
+    want = mh.minhash_plain(win, valid, B, R)
+    sig, _ = window_signatures("lsh", win, valid, GAMMA, LshParams(B, R))
+    err = max(max_abs_diff(got, want), max_abs_diff(got, sig))
+    if err != 0.0:
+        fail(f"minhash N={N} L={L} {B} x {R}: differs from the plain version or "
+             f"window_signatures ({err})")
+    report.worst_err("minhash", err)
+    del got, want, sig
+    log(f"[check] minhash N={N} L={L} {B} x {R}: bit-identical to the plain version and "
+        f"window_signatures('lsh')")
+    call = lambda: mh.minhash_cuda(win, valid, B, R)  # noqa: E731
+    ms = cuda_time_ms(call, 50)
+    dev_ms, _ = device_ms(call, 20)
+    plain = cuda_time_ms(lambda: mh.minhash_plain(win, valid, B, R), 5)
+    # tokens and validity bytes read once, [N, B] u32 written once; per
+    # valid token B*R hashes (~10 ops) and mins, per row B*R combines
+    # (~12 ops)
+    nv = int(valid.sum())
+    nbytes = N * L * 4 + N * L + N * B * 4
+    int_ops = nv * B * R * 11 + N * (B * R + B) * 12
+    if tag:
+        b = max(nbytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
+        report.set("minhash", **{f"ms{tag}": ms, f"device_ms{tag}": dev_ms,
+                                 f"plain_ms{tag}": plain, f"bound{tag}_ms": b})
+    else:
+        b = bound(report, "minhash", nbytes, int_ops)
+        report.set("minhash", route="cuda", source="src/repro_torch/kernels/csrc/minhash.cu",
+                   replaces="src/repro/kernels/minhash.py:66", ms=ms, device_ms=dev_ms,
+                   plain_ms=plain, library_ms=None)
+    log(f"[time] minhash N={N} L={L} {B} x {R}: kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+        f"plain {plain:.3f} ms, bound {b:.4f} ms ({nbytes} B, {nv} valid tokens)")
 
 
 def phase_minhash(report, docs_b):
@@ -879,50 +964,19 @@ def phase_minhash(report, docs_b):
     ``docs_b``, equal to the plain form and to window_signatures."""
     import torch
 
-    from repro_torch.core.dictionary import PAD
-    from repro_torch.core.signatures import LshParams, window_signatures
-    from repro_torch.extraction import engine
-    from repro_torch.kernels import minhash as mh
     from repro_torch.kernels import ops
 
-    Db, Tb = docs_b.shape
-    Lm = MAX_ENTITY_LEN
-    N = Db * Tb * Lm
-    flat = torch.arange(N, device=docs_b.device)
-    ok = torch.ones(N, dtype=torch.bool, device=docs_b.device)
-    win = engine.candidates_from_flat(docs_b, flat, ok, torch.tensor(N), Lm, N)["win_tokens"]
-    valid = win != PAD
+    win, valid = windows_of(docs_b, MAX_ENTITY_LEN)
     reset_counts()
     outs = {br: ops.minhash(win, valid, *br) for br in MINHASH_BANDS}
     torch.cuda.synchronize()
     launches = read_counts(("minhash",))
     require_launched(launches, "minhash entry point")
-    for br, got in outs.items():
-        want = mh.minhash_plain(win, valid, *br)
-        sig, _ = window_signatures("lsh", win, valid, GAMMA, LshParams(*br))
-        torch.cuda.synchronize()
-        err = max(max_abs_diff(got, want), max_abs_diff(got, sig))
-        if err != 0.0:
-            fail(f"minhash {br[0]} x {br[1]}: differs from the plain version or "
-                 f"window_signatures ({err})")
-        report.worst_err("minhash", err)
-    log(f"[check] minhash N={N} L={Lm} at {MINHASH_BANDS}: bit-identical to the plain version "
-        f"and window_signatures('lsh'); {int((~valid.any(dim=1)).sum())} windows without a "
-        f"valid token; launches {launches}")
-    B, R = MINHASH_BANDS[0]
-    ms = cuda_time_ms(lambda: mh.minhash_cuda(win, valid, B, R), 50)
-    plain = cuda_time_ms(lambda: mh.minhash_plain(win, valid, B, R), 5)
-    # tokens and validity bytes read once, [N, B] u32 written once; per
-    # valid token B*R hashes (~10 ops) and mins, per row B*R combines
-    # (~12 ops)
-    nv = int(valid.sum())
-    nbytes = N * Lm * 4 + N * Lm + N * B * 4
-    b = bound(report, "minhash", nbytes, nv * B * R * 11 + N * (B * R + B) * 12)
-    report.set("minhash", route="cuda", source="src/repro_torch/kernels/csrc/minhash.cu",
-               replaces="src/repro/kernels/minhash.py:66", ms=ms, plain_ms=plain,
-               library_ms=None, launches=launches["minhash"])
-    log(f"[time] minhash N={N} L={Lm} {B} x {R}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-        f"bound {b:.4f} ms ({nbytes} B, {nv} valid tokens)")
+    report.set("minhash", launches=launches["minhash"])
+    log(f"[minhash] ops.minhash on {win.shape[0]} windows at {MINHASH_BANDS}: launches "
+        f"{launches}; {int((~valid.any(dim=1)).sum())} windows without a valid token")
+    for br in MINHASH_BANDS[::-1]:  # the row's shape (the first) last
+        check_minhash(report, win, valid, br, "", got=outs.pop(br))
 
 
 def card_line() -> str:
@@ -933,6 +987,7 @@ def card_line() -> str:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1037,18 +1092,22 @@ def main() -> int:
 
     # ---------------------------------------------------------- minhash
     phase_minhash(report, docs_b)
-    del docs, docs_b
+    del docs_b
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- D
-    launches_d = phase_d(report, dev)
+    launches_d = phase_d(report, dev, docs)
+    del docs
     report.set("window_filter", launches=launches_d["window_filter"])
     report.set("jaccard_verify_long", launches=launches_d["jaccard_verify_long"])
 
+    log(f"[total] {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     rows = [report.rows[n] for n in counters()]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("device_ms",)  # where measured
+    # where measured: device time, and the second shapes of B4 and B5
+    extra = ("device_ms", "ms_large", "device_ms_large", "plain_ms_large", "bound_large_ms",
+             "ms_l40", "device_ms_l40", "plain_ms_l40", "bound_l40_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                                   for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

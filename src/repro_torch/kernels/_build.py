@@ -5,7 +5,8 @@ device code that several sources include). It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch/`` at the root
 of the checkout, keyed by a hash of its source and flags, and loaded
 with ``ctypes`` at first use. ``build()`` compiles several sources in
-parallel, one ``nvcc`` process each.
+parallel, one ``nvcc`` process each. ``current_stream`` gives the
+launchers the handle of the stream PyTorch is on.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -26,6 +29,11 @@ NVCC_FLAGS = (
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default prefix
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+# Private PyTorch API: the current stream's raw handle without building a
+# torch.cuda.Stream object (a few microseconds a call); the public form
+# where a build lacks it.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _nvcc() -> str:
@@ -78,3 +86,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream on ``device``."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream

@@ -476,7 +476,7 @@ def fused_probe_cuda(doc_tokens, bits, num_bits: int, num_hashes: int, max_len: 
     counts = torch.empty((G,), dtype=i32, device=dev) if count_tiles else None
     cands = torch.empty((G, cand_cap), dtype=i32, device=dev) if cand_cap else None
     vkeys = torch.empty((G, cand_cap, 2), dtype=i64, device=dev) if cand_cap and var else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.current_stream(dev)
     rc = lib.fused_probe_launch(
         doc_tokens.data_ptr(), D, T,
         bits.data_ptr(), num_bits, bits.numel(), num_hashes, int(use_filter),
@@ -519,7 +519,7 @@ def fused_probe_stream_cuda(doc_tokens, bits, row_offs, num_bits: int, num_hashe
     counts = torch.empty((G,), dtype=i32, device=dev)
     cands = torch.empty((G, cand_cap), dtype=i32, device=dev) if cand_cap else None
     vkeys = torch.empty((G, cand_cap, 2), dtype=i32, device=dev) if var else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.current_stream(dev)
     rc = lib.fused_probe_stream_launch(
         doc_tokens.data_ptr(), R, T, row_offs.data_ptr(),
         bits.data_ptr(), num_bits, num_hashes, int(use_filter),

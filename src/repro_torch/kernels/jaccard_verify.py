@@ -102,7 +102,7 @@ def jaccard_verify_cuda(win_tokens, win_w, ent_tokens, ent_w, mode: str = "extra
         return out
     rc = _lib().jaccard_verify_launch(
         win_tokens.data_ptr(), win_w.data_ptr(), ent_tokens.data_ptr(), ent_w.data_ptr(),
-        out.data_ptr(), N, K, L, MODES.index(mode), torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), N, K, L, MODES.index(mode), _build.current_stream(dev),
     )
     launches += 1
     if L > MAX_UNROLLED_L:

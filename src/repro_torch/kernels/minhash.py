@@ -25,9 +25,6 @@ import torch
 from repro_torch.core.signatures import LshParams, _minhash_torch
 from repro_torch.kernels import _build
 
-#: most row minima one kernel thread keeps in registers
-MAX_BANDS_ROWS = 32
-
 #: launches of the CUDA kernel since the last reset (one per wrapper call)
 launches = 0
 
@@ -73,15 +70,13 @@ def minhash_cuda(tokens, valid, bands: int = 4, rows: int = 2):
             )
     if valid.device != tokens.device:
         raise ValueError("minhash_cuda: valid must be on the tokens' device")
-    if bands * rows > MAX_BANDS_ROWS:
-        raise ValueError(f"minhash_cuda: bands*rows={bands * rows} > {MAX_BANDS_ROWS} row minima")
     N, L = tokens.shape
     if N * L == 0:
         raise ValueError("minhash_cuda: empty token batch")
     out = torch.empty((N, bands), dtype=torch.int64, device=tokens.device)
     rc = _lib().minhash_launch(
         tokens.data_ptr(), valid.data_ptr(), N, L, bands, rows, out.data_ptr(),
-        torch.cuda.current_stream(tokens.device).cuda_stream,
+        _build.current_stream(tokens.device),
     )
     launches += 1
     if rc != 0:

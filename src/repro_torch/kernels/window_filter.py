@@ -81,7 +81,7 @@ def window_filter_cuda(doc_tokens, bits, num_bits: int, num_hashes: int, max_len
     out = torch.empty((D, T, max_len), dtype=torch.bool, device=doc_tokens.device)
     rc = _lib().window_filter_launch(
         doc_tokens.data_ptr(), D, T, bits.data_ptr(), num_bits, bits.numel(), num_hashes,
-        max_len, out.data_ptr(), torch.cuda.current_stream(doc_tokens.device).cuda_stream,
+        max_len, out.data_ptr(), _build.current_stream(doc_tokens.device),
     )
     launches += 1
     if rc != 0:

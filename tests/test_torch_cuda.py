@@ -278,24 +278,79 @@ def test_fused_probe_stream_cuda_edge_cases(cuda_device, sig_mode, count_only, c
         assert counts.all()
 
 
-@pytest.mark.parametrize("L", [33, 40, 8])
-@pytest.mark.parametrize("num_bits", [1 << 12, 1 << 20])
-def test_window_filter_cuda_matches_plain(cuda_device, L, num_bits):
-    rng = np.random.default_rng(L)
-    docs = torch.as_tensor(_docs(rng, 13, 600), device=cuda_device)
-    bits = torch.as_tensor(_bits(rng, num_bits, 0.1).view(np.int32), device=cuda_device)
+def _window_filter_both(rng, D, T, L, num_bits, density=0.1):
+    docs = torch.as_tensor(_docs(rng, D, T), device="cuda")
+    bits = torch.as_tensor(_bits(rng, num_bits, density).view(np.int32), device="cuda")
     got = wf.window_filter_cuda(docs, bits, num_bits, 3, L)
     want = wf.window_filter_plain(docs, bits, num_bits, 3, L)
     torch.cuda.synchronize()
+    return got, want
+
+
+# num_bits: Bloom words in shared memory (4 KiB, and 98,304 bits, not a
+# power of two) or read through the cache (128 KiB, above the 96 KiB the
+# filter may take in shared memory)
+@pytest.mark.parametrize("L", [33, 40, 8, 64, 100])
+@pytest.mark.parametrize("num_bits", [1 << 12, 1 << 20, 3 << 15])
+def test_window_filter_cuda_matches_plain(cuda_device, L, num_bits):
+    got, want = _window_filter_both(np.random.default_rng(L), 13, 600, L, num_bits)
     assert got.dtype == torch.bool and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("bands,rows", [(4, 2), (2, 4), (1, 8), (4, 8)])
-def test_minhash_cuda_matches_plain(cuda_device, bands, rows):
-    rng = np.random.default_rng(bands * rows)
-    toks = torch.as_tensor(_docs(rng, 5000, 8, vocab=60000, pad_frac=0.3), device=cuda_device)
+# (D, T, L): one document; T < L; T not a multiple of the 32- or
+# 128-position run and T*L not a multiple of 16; batches large enough for
+# the persistent blocks (more than 132*4 runs of 32 positions); L long
+# enough that a run's hit words take two batches of loads (L = 150, 300)
+WF_EDGE_SHAPES = [(1, 600, 40), (3, 20, 40), (2, 129, 33), (1, 1, 8), (5, 7, 100),
+                  (2, 400, 300), (1024, 100, 40), (300, 700, 64), (600, 515, 37),
+                  (700, 130, 150)]
+
+
+@pytest.mark.parametrize("num_bits", [1 << 12, 1 << 20, 5 << 17])  # 5 << 17: 80 KiB, shared
+@pytest.mark.parametrize("D,T,L", WF_EDGE_SHAPES)
+def test_window_filter_cuda_edge_shapes(cuda_device, D, T, L, num_bits):
+    got, want = _window_filter_both(np.random.default_rng(D * T + L), D, T, L, num_bits, 0.3)
+    assert torch.equal(got, want)
+
+
+def _minhash_inputs(rng, N, L, misaligned=False):
+    toks = _docs(rng, N, L, vocab=60000, pad_frac=0.3)
     valid = toks != 0
-    valid[:3] = False
+    valid[: min(3, N)] = False  # rows with no valid token
+    toks, valid = torch.as_tensor(toks, device="cuda"), torch.as_tensor(valid, device="cuda")
+    if misaligned:  # views 4 bytes and 1 byte into their storage: not 16-byte aligned
+        t2 = torch.zeros(N * L + 1, dtype=torch.int32, device="cuda")
+        t2[1:] = toks.flatten()
+        v2 = torch.zeros(N * L + 1, dtype=torch.bool, device="cuda")
+        v2[1:] = valid.flatten()
+        toks, valid = t2[1:].view(N, L), v2[1:].view(N, L)
+    return toks, valid
+
+
+# bands x rows up to 8 x 8 (two chunks of 32 row minima) and 65 x 1 (65
+# bands: signatures not staged), at every row length instance
+@pytest.mark.parametrize("L", [8, 40, 1, 7, 9, 64])
+@pytest.mark.parametrize("bands,rows", [(4, 2), (2, 4), (1, 8), (4, 8), (2, 8), (5, 7), (8, 8),
+                                        (65, 1)])
+def test_minhash_cuda_matches_plain(cuda_device, bands, rows, L):
+    toks, valid = _minhash_inputs(np.random.default_rng(bands * rows + L), 5000, L)
+    got = mh.minhash_cuda(toks, valid, bands, rows)
+    want = mh.minhash_plain(toks, valid, bands, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got[:3] == got[0]).all()
+
+
+# N: one row, partial tiles of 128 rows, and tiles walked by persistent
+# blocks; L = 100 stages rows in column chunks; misaligned views stage
+# with plain loads
+@pytest.mark.parametrize("N", [1, 255, 257, 5000, 70_000])
+@pytest.mark.parametrize("L,bands,rows,misaligned", [(8, 4, 2, False), (40, 2, 8, False),
+                                                     (100, 5, 7, False), (8, 4, 2, True),
+                                                     (40, 8, 8, True)])
+def test_minhash_cuda_tiles(cuda_device, N, L, bands, rows, misaligned):
+    toks, valid = _minhash_inputs(np.random.default_rng(N + L), N, L, misaligned)
+    assert (toks.data_ptr() % 16 != 0) == misaligned
     got = mh.minhash_cuda(toks, valid, bands, rows)
     want = mh.minhash_plain(toks, valid, bands, rows)
     torch.cuda.synchronize()

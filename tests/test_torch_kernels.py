@@ -335,18 +335,22 @@ def test_fused_probe_stream_argument_checks():
 
 # ------------------------------------------------------------ B4 window filter
 
-@pytest.mark.parametrize("D", [5, 13])
-@pytest.mark.parametrize("L", [33, 40])
-def test_window_filter_plain_matches_pallas_and_ref(D, L):
+# (L, D, num_bits): 3 << 12 bits is a filter whose size is not a power of two
+WF_PLAIN_CASES = [pytest.param(L, D, 1 << 12, id=f"{L}-{D}") for L in (33, 40) for D in (5, 13)]
+WF_PLAIN_CASES.append(pytest.param(64, 5, 3 << 12, id="64-5-nonpow2"))
+
+
+@pytest.mark.parametrize("L,D,num_bits", WF_PLAIN_CASES)
+def test_window_filter_plain_matches_pallas_and_ref(L, D, num_bits):
     rng = np.random.default_rng(D * L)
     docs = _docs(rng, D, 70, vocab=500, pad_frac=0.1)
-    bits = _bits(rng, 1 << 12, density=0.3)
-    want = np.asarray(window_filter_pallas(jnp.asarray(docs), jnp.asarray(bits), 1 << 12, 3, L,
+    bits = _bits(rng, num_bits, density=0.3)
+    want = np.asarray(window_filter_pallas(jnp.asarray(docs), jnp.asarray(bits), num_bits, 3, L,
                                            interpret=True))
-    ref = np.asarray(r_ref.window_filter_ref(jnp.asarray(docs), jnp.asarray(bits), 1 << 12, 3,
+    ref = np.asarray(r_ref.window_filter_ref(jnp.asarray(docs), jnp.asarray(bits), num_bits, 3,
                                              L))
     got = t_wf.window_filter_plain(torch.as_tensor(docs), torch.as_tensor(bits.view(np.int32)),
-                                   1 << 12, 3, L)
+                                   num_bits, 3, L)
     assert got.dtype == torch.bool and got.shape == (D, 70, L)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -355,10 +359,16 @@ def test_window_filter_plain_matches_pallas_and_ref(D, L):
 
 # ------------------------------------------------------------ B5 minhash
 
-@pytest.mark.parametrize("bands,rows", [(4, 2), (2, 4)])
-def test_minhash_plain_matches_pallas_and_numpy(bands, rows):
+# (bands, rows, L): the CUDA kernel's shapes, above 32 row minima included
+MINHASH_PLAIN_CASES = [pytest.param(4, 2, 8, id="4-2"), pytest.param(2, 4, 8, id="2-4"),
+                       pytest.param(5, 7, 8, id="5-7"), pytest.param(8, 8, 8, id="8-8"),
+                       pytest.param(2, 8, 40, id="2-8-L40")]
+
+
+@pytest.mark.parametrize("bands,rows,L", MINHASH_PLAIN_CASES)
+def test_minhash_plain_matches_pallas_and_numpy(bands, rows, L):
     rng = np.random.default_rng(bands * 10 + rows)
-    toks = _docs(rng, 300, 8, vocab=5000, pad_frac=0.2)
+    toks = _docs(rng, 300, L, vocab=5000, pad_frac=0.2)
     valid = toks != 0
     valid[:7] = False  # rows with no valid token
     want = np.asarray(minhash_pallas(jnp.asarray(toks), jnp.asarray(valid), bands, rows,
@@ -385,7 +395,18 @@ def test_window_filter_and_minhash_checks():
         t_mh.minhash_cuda(docs, docs != 0, 2, 4)
     with pytest.raises(ValueError, match="valid"):
         t_mh.minhash_plain(docs, docs[:, :4] != 0, 2, 4)
+    with pytest.raises(ValueError, match="bands=0"):
+        t_mh.minhash_cuda(docs, docs != 0, 0, 4)
     before = (t_wf.launches, t_mh.launches)
     t_ops.window_filter(docs, bits, 256, 1, 40)
     t_ops.minhash(docs, docs != 0, 2, 4)
     assert (t_wf.launches, t_mh.launches) == before  # CPU tensors: plain forms
+
+
+@pytest.mark.parametrize("bands,rows", [(5, 7), (8, 8), (65, 1)])
+def test_minhash_cuda_takes_any_banding(bands, rows):
+    """More than 32 row minima: refused only for lying on the CPU."""
+    docs = torch.ones((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor") as err:
+        t_mh.minhash_cuda(docs, docs != 0, bands, rows)
+    assert "row minima" not in str(err.value)
